@@ -1,0 +1,59 @@
+// Counter-based uniforms in [0, 1): one thread per element.
+//
+// Replaces src/repro/kernels/prng.py:_uniform_kernel (via uniform_2d).
+// Element i draws from its own stream: the counter (uint32)i + seed, wrapping
+// mod 2^32, seeds splitmix32, and the generator takes one step:
+//   LCG         state*A + C, output (new >> 9) ^ new;
+//   xoshiro128+ first output s0 + s3 of the splitmix-seeded words
+//               (the words s1 and s2 do not enter it).
+// The top 24 bits scale to [0, 1).  All integer arithmetic is uint32 with
+// its wraparound, so the bits equal the TPU kernel's exactly.
+//
+// Bound on the H100: device-memory bytes (4 written per element, for about
+// 20 integer operations).  The TPU kernel's (rows, 1024) tiling and the
+// padding it needs are gone: the grid-stride loop covers any n.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr uint32_t kPhi = 0x9e3779b9u;
+constexpr uint32_t kLcgA = 1664525u;
+constexpr uint32_t kLcgC = 1013904223u;
+
+__device__ __forceinline__ uint32_t splitmix32(uint32_t z) {
+  z += kPhi;
+  z = (z ^ (z >> 16)) * 0x85ebca6bu;
+  z = (z ^ (z >> 13)) * 0xc2b2ae35u;
+  return z ^ (z >> 16);
+}
+
+__global__ void uniform_kernel(float* __restrict__ out, int64_t n,
+                               uint32_t seed, int kind) {
+  const int64_t stride = static_cast<int64_t>(blockDim.x) * gridDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    const uint32_t idx = static_cast<uint32_t>(i) + seed;
+    uint32_t bits;
+    if (kind == 0) {  // LCG
+      const uint32_t next = splitmix32(idx) * kLcgA + kLcgC;
+      bits = (next >> 9) ^ next;
+    } else {  // xoshiro128+
+      bits = splitmix32(idx) + splitmix32(idx + 3u * kPhi);
+    }
+    out[i] = static_cast<float>(bits >> 8) * 0x1p-24f;
+  }
+}
+
+}  // namespace
+
+// out[i] for i < n, on the given stream; kind 0 is the LCG, 1 xoshiro128+.
+// Returns the launch's cudaError_t as an int (0 on success).
+extern "C" int copift_uniform_f32(float* out, int64_t n, uint32_t seed,
+                                  int kind, cudaStream_t stream) {
+  if (n > 0) {
+    uniform_kernel<<<grid_stride_blocks(n, kThreads), kThreads, 0, stream>>>(
+        out, n, seed, kind);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

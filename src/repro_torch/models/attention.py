@@ -1,0 +1,225 @@
+"""Attention: MHA / GQA / MQA with RoPE / M-RoPE, qk-norm, causal and
+sliding-window masks, KV-cache decode.  The softmax of a materialised score
+matrix goes through the COPIFT softmax kernel and the exp of the chunked
+(online-softmax) path through the COPIFT exp kernel
+(``repro_torch.kernels.ops``) when ``cfg.use_copift_softmax`` is set.
+
+Layout as in the JAX package: q (B, T, H, Dh); kv (B, S, Hkv, Dh); GQA
+repeats kv groups at use.  One device has no mesh, so the JAX package's
+sharding constraints have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models import layers as L
+
+NEG_INF = -0.7 * float(np.finfo(np.float32).max)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        dt = getattr(torch, cfg.dtype)
+        d, a = cfg.d_model, cfg.attn_dim
+        kv_dim = cfg.n_kv_heads * cfg.d_head
+        self.q = L.Linear(d, a, dt, device)
+        self.k = L.Linear(d, kv_dim, dt, device)
+        self.v = L.Linear(d, kv_dim, dt, device)
+        self.o = L.Linear(a, d, dt, device, scale=a ** -0.5)
+        if cfg.qk_norm:
+            self.q_norm = L.Norm("rmsnorm", cfg.d_head, device)
+            self.k_norm = L.Norm("rmsnorm", cfg.d_head, device)
+
+
+def _rotate(cfg: ModelConfig, x, positions):
+    if cfg.rope == "none":
+        return x
+    if cfg.rope == "mrope":
+        return L.apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    if positions.ndim == 3:                   # (3, B, T) given, 1-D wanted
+        positions = positions[0]
+    return L.apply_rope(x, positions, cfg.rope_theta)
+
+
+def _softmax(cfg: ModelConfig, scores):
+    if cfg.use_copift_softmax:
+        return kops.softmax(scores, axis=-1, impl=cfg.softmax_impl)
+    return torch.softmax(scores, dim=-1)
+
+
+def _mask_bias(cfg: ModelConfig, q_len: int, kv_len: int, q_offset: int,
+               dtype, device) -> torch.Tensor:
+    """(q_len, kv_len) additive mask.  q_offset positions the query block
+    inside the kv timeline (decode: q_offset = cache position)."""
+    q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
+    k_pos = torch.arange(kv_len, device=device)[None, :]
+    keep = torch.ones((q_len, kv_len), dtype=torch.bool, device=device)
+    if cfg.causal:
+        keep &= k_pos <= q_pos
+    if cfg.sliding_window:
+        keep &= k_pos > q_pos - cfg.sliding_window
+    return torch.where(keep, 0.0, NEG_INF).to(dtype)
+
+
+#: switch to the chunked (online-softmax) path above this many score elems.
+CHUNKED_THRESHOLD = 1 << 23
+KV_CHUNK = 1024
+Q_BLOCK = 1024
+
+
+def _exp(cfg: ModelConfig, x):
+    if cfg.use_copift_softmax:
+        return kops.exp(x, impl=cfg.softmax_impl)   # the COPIFT construction
+    return torch.exp(x)
+
+
+def _chunk_keep(cfg: ModelConfig, q_pos, k_pos, valid_limit=None):
+    keep = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                      device=q_pos.device)
+    if cfg.causal:
+        keep &= k_pos[None, :] <= q_pos[:, None]
+    if cfg.sliding_window:
+        keep &= k_pos[None, :] > q_pos[:, None] - cfg.sliding_window
+    if valid_limit is not None:     # cache: slots beyond the write are junk
+        keep &= k_pos[None, :] < valid_limit
+    return keep
+
+
+def _chunked_attention(cfg: ModelConfig, q, k, v, q_offset: int,
+                       valid_limit=None):
+    """FlashAttention-style two-level blocking: the (T, S) score matrix is
+    never materialised.  The outer loop tiles queries; the inner loop
+    streams KV chunks with a running (m, l, acc).  Each query block visits
+    only the static range of KV chunks that its causal / sliding-window
+    mask can reach.
+
+    q: (B,T,Hkv,g,Dh) grouped; k/v: (B,S,Hkv,Dh).  Returns (B,T,Hkv,g,Dh)
+    in fp32.
+    """
+    B, T, Hkv, g, Dh = q.shape
+    S = k.shape[1]
+    C = min(KV_CHUNK, S)
+    n_chunks = S // C
+    scale = Dh ** -0.5
+    Tq = min(Q_BLOCK, T)
+    if T % Tq:
+        raise ValueError(f"T={T} is not a multiple of the query block {Tq}")
+    nq = T // Tq
+    dev = q.device
+
+    def q_block(qb, qb_pos, lo, hi):
+        """qb: (B,Tq,Hkv,g,Dh); qb_pos: (Tq,) absolute positions; [lo, hi):
+        the kv-chunk range this block attends."""
+        qf = qb.to(torch.float32)
+        m = torch.full((B, Hkv, g, Tq), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, Hkv, g, Tq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, Tq, Hkv, g, Dh), dtype=torch.float32,
+                          device=dev)
+        for c in range(lo, hi):
+            kc = k[:, c * C:(c + 1) * C].to(torch.float32)
+            vc = v[:, c * C:(c + 1) * C].to(torch.float32)
+            s = torch.einsum("bthgd,bshd->bhgts", qf, kc) * scale
+            k_pos = torch.arange(C, device=dev) + c * C
+            keep = _chunk_keep(cfg, qb_pos, k_pos, valid_limit)   # (Tq, C)
+            s = torch.where(keep, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))          # (B,Hkv,g,Tq)
+            p = torch.where(keep, _exp(cfg, s - m_new[..., None]), 0.0)
+            corr = _exp(cfg, m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bhgts,bshd->bthgd", p, vc)
+            corr_t = corr.permute(0, 3, 1, 2)                 # (B,Tq,Hkv,g)
+            acc = acc * corr_t[..., None] + pv
+            m = m_new
+        denom = l.permute(0, 3, 1, 2)
+        return acc / torch.clamp(denom, min=1e-30)[..., None]
+
+    def chunk_range(first_pos: int, last_pos: int) -> tuple[int, int]:
+        """kv-chunk window for q positions [first, last]."""
+        if not cfg.causal:
+            return 0, n_chunks
+        hi = min(last_pos // C + 1, n_chunks)
+        lo = 0
+        if cfg.sliding_window:
+            lo = max(0, (first_pos - cfg.sliding_window + 1) // C)
+        return lo, max(hi, lo + 1)
+
+    outs = []
+    for i in range(nq):
+        start = q_offset + i * Tq
+        lo, hi = chunk_range(start, start + Tq - 1)
+        pos = torch.arange(Tq, device=dev) + start
+        outs.append(q_block(q[:, i * Tq:(i + 1) * Tq], pos, lo, hi))
+    return torch.cat(outs, dim=1)
+
+
+def attention(p: Attention, cfg: ModelConfig, x, positions, kv_cache=None,
+              cache_index: int | None = None):
+    """x: (B, T, D).  Training/prefill: kv_cache None.
+    Decode: kv_cache = dict(k=(B, S, Hkv, Dh), v=...), cache_index an int —
+    writes the new keys and values into the cache IN PLACE at
+    ``cache_index`` (the JAX package returns an updated copy; writing in
+    place saves one cache copy per layer per step) and attends over the
+    cache.  Returns (out, kv_cache)."""
+    dt = getattr(torch, cfg.dtype)
+    B, T, _ = x.shape
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+
+    q = L.linear(p.q, x, dt).reshape(B, T, H, Dh)
+    k = L.linear(p.k, x, dt).reshape(B, T, Hkv, Dh)
+    v = L.linear(p.v, x, dt).reshape(B, T, Hkv, Dh)
+    if cfg.qk_norm:
+        q = L.norm("rmsnorm", p.q_norm, q)
+        k = L.norm("rmsnorm", p.k_norm, k)
+    q = _rotate(cfg, q, positions)
+    k = _rotate(cfg, k, positions)
+
+    if kv_cache is not None:
+        kv_cache["k"][:, cache_index:cache_index + T] = k
+        kv_cache["v"][:, cache_index:cache_index + T] = v
+        k, v = kv_cache["k"], kv_cache["v"]
+        q_offset = cache_index
+    else:
+        q_offset = 0
+
+    # GQA: (B, S, Hkv, Dh) → group queries; einsum over grouped heads.
+    S = k.shape[1]
+    g = H // Hkv
+    qg = q.reshape(B, T, Hkv, g, Dh)
+
+    if T > 1 and T * S > CHUNKED_THRESHOLD and S % KV_CHUNK == 0:
+        valid = None if kv_cache is None else q_offset + T
+        out = _chunked_attention(cfg, qg, k, v, q_offset, valid).to(dt)
+        out = out.reshape(B, T, H * Dh)
+        return L.linear(p.o, out, dt), kv_cache
+
+    # Scores in fp32, as the JAX package's preferred_element_type=float32:
+    # the products of bf16 values are exact in fp32, and a bf16 matmul would
+    # round the scores to bf16 before the mask and the softmax.
+    scores = torch.einsum("bthgd,bshd->bhgts", qg.to(torch.float32),
+                          k.to(torch.float32))
+    scores = scores * (Dh ** -0.5)
+    bias = _mask_bias(cfg, T, S, q_offset, scores.dtype, x.device)
+    if kv_cache is not None:
+        # Mask out cache slots beyond the current position.
+        valid = torch.arange(S, device=x.device)[None, :] <= (q_offset + T - 1)
+        bias = bias + torch.where(valid, 0.0, NEG_INF).to(scores.dtype)
+    scores = scores + bias[None, None, None]
+    w = _softmax(cfg, scores).to(dt)
+    out = torch.einsum("bhgts,bshd->bthgd", w, v.to(dt))
+    out = out.reshape(B, T, H * Dh)
+    return L.linear(p.o, out, dt), kv_cache
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  n_attn_layers: int, dtype=None, device="cuda"):
+    dt = getattr(torch, dtype or cfg.dtype)
+    shape = (n_attn_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}

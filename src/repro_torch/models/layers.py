@@ -1,0 +1,195 @@
+"""Primitive layers: linear, norms, rotary embeddings, activations,
+embedding tables.
+
+Conventions (the JAX package's ``repro.models.layers``, in PyTorch idiom):
+* parameters live in ``nn.Module``s whose attribute names follow the JAX
+  parameter tree, so ``repro_torch.convert`` maps one onto the other;
+* weight matrices are (d_in, d_out) and stored in the compute dtype, 1-D
+  parameters (norm gains, biases) in fp32: the arithmetic of the JAX
+  package's fp32 masters cast once to the compute dtype before use;
+* modules are created on an explicit ``device`` with uninitialised storage;
+  ``init_`` fills them from an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    # Serving only: no parameter takes a gradient in this package yet.
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+@torch.no_grad()
+def truncnorm_(p: torch.Tensor, scale: float,
+               generator: torch.Generator) -> None:
+    """Fill ``p`` with a standard normal truncated to ±2, times ``scale``,
+    drawn in fp32 and cast to ``p``'s dtype (as ``layers._truncnorm``)."""
+    w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    p.copy_(w * scale)
+
+
+# ---------------------------------------------------------------------------
+# linear / embedding
+# ---------------------------------------------------------------------------
+
+class Linear(nn.Module):
+    """``w`` (d_in, d_out) and an optional fp32 bias ``b``."""
+
+    def __init__(self, d_in: int, d_out: int, dtype, device,
+                 bias: bool = False, scale: float | None = None):
+        super().__init__()
+        self.scale = scale if scale is not None else d_in ** -0.5
+        self.w = _param((d_in, d_out), dtype, device)
+        self.b = _param((d_out,), torch.float32, device) if bias else None
+
+    def init_(self, generator: torch.Generator) -> None:
+        truncnorm_(self.w, self.scale, generator)
+        if self.b is not None:
+            self.b.data.zero_()
+
+
+def linear(p: Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    y = x.to(dtype) @ p.w.to(dtype)
+    if p.b is not None:
+        y = y + p.b.to(dtype)
+    return y
+
+
+class Embedding(nn.Module):
+    def __init__(self, vocab: int, d: int, dtype, device):
+        super().__init__()
+        self.table = _param((vocab, d), dtype, device)
+
+    def init_(self, generator: torch.Generator) -> None:
+        truncnorm_(self.table, self.table.shape[1] ** -0.5, generator)
+
+
+def embed(p: Embedding, ids: torch.Tensor, dtype) -> torch.Tensor:
+    return p.table.to(dtype)[ids]
+
+
+def unembed(p: Embedding, x: torch.Tensor, dtype) -> torch.Tensor:
+    """Tied readout: logits = x @ tableᵀ."""
+    return x.to(dtype) @ p.table.to(dtype).T
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+class Norm(nn.Module):
+    """The learned part of a norm: none for ``nonparam_ln``, ``g`` and ``b``
+    for ``layernorm``, ``g`` for the RMSNorms."""
+
+    def __init__(self, kind: str, d: int, device):
+        super().__init__()
+        self.kind = kind
+        learned = kind != "nonparam_ln"
+        self.g = _param((d,), torch.float32, device) if learned else None
+        self.b = (_param((d,), torch.float32, device)
+                  if kind == "layernorm" else None)
+
+    def init_(self, generator: torch.Generator | None = None) -> None:
+        if self.g is not None:
+            self.g.data.fill_(1.0)
+        if self.b is not None:
+            self.b.data.zero_()
+
+
+def norm(kind: str, p: Norm, x: torch.Tensor, eps: float = 1e-6):
+    xf = x.to(torch.float32)
+    if kind in ("layernorm", "nonparam_ln"):
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, correction=0)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        if kind == "layernorm":
+            y = y * p.g + p.b
+        return y.to(x.dtype)
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(ms + eps)
+    if kind == "gemma_rmsnorm":               # gemma scales by (1 + g)
+        y = y * (1.0 + p.g)
+    else:
+        y = y * p.g
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings (RoPE and qwen2-vl's M-RoPE)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(d_head: int, theta: float, device) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=device) / d_head
+    return 1.0 / (theta ** exps)
+
+
+def _rotate_pairs(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, T, H, Dh); positions: (B, T) int."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)            # (Dh/2,)
+    ang = positions[..., None].to(torch.float32) * inv        # (B, T, Dh/2)
+    return _rotate_pairs(x, ang)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: tuple[int, int, int]) -> torch.Tensor:
+    """qwen2-vl M-RoPE: the Dh/2 frequency slots are split into (t, h, w)
+    sections, each rotated by its own position stream.
+
+    x: (B, T, H, Dh); positions3: (3, B, T).  For text tokens the three
+    streams are equal, which reduces exactly to 1-D RoPE.
+    """
+    d_head = x.shape[-1]
+    inv = rope_freqs(d_head, theta, x.device)
+    sec = np.asarray(sections)
+    if sec.sum() != d_head // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"d_head/2 = {d_head // 2}")
+    sel = torch.as_tensor(np.repeat(np.arange(3), sec), device=x.device)
+    pos = positions3.index_select(0, sel)                     # (Dh/2, B, T)
+    ang = pos.movedim(0, -1).to(torch.float32) * inv
+    return _rotate_pairs(x, ang)
+
+
+# ---------------------------------------------------------------------------
+# activations / gated FFN
+# ---------------------------------------------------------------------------
+
+def act_fn(kind: str, x: torch.Tensor) -> torch.Tensor:
+    if kind in ("swiglu", "silu"):
+        return F.silu(x)
+    # geglu / gelu: gemma uses tanh-approximated GELU.
+    return F.gelu(x, approximate="tanh")
+
+
+class FFN(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, act: str, dtype, device):
+        super().__init__()
+        self.up = Linear(d_model, d_ff, dtype, device)
+        self.down = Linear(d_ff, d_model, dtype, device, scale=d_ff ** -0.5)
+        self.gate = (Linear(d_model, d_ff, dtype, device)
+                     if act in ("swiglu", "geglu") else None)
+
+
+def ffn(p: FFN, x: torch.Tensor, act: str, dtype) -> torch.Tensor:
+    up = linear(p.up, x, dtype)
+    if p.gate is not None:
+        up = up * act_fn(act, linear(p.gate, x, dtype))
+    else:
+        up = act_fn(act, up)
+    return linear(p.down, up, dtype)
