@@ -6,15 +6,22 @@
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
-1. The card's name and power limit (``nvidia-smi``), then the build of every
-   CUDA kernel from ``src/repro_torch/csrc`` (nvcc into ``build/``).
+1. The card's name and power limit (``nvidia-smi``), its SM count and
+   maximum SM clock (from which the FP32 and INT32 rates follow), then
+   the build of every CUDA kernel from ``src/repro_torch/csrc`` (nvcc into
+   ``build/``).
 2. Every kernel held against its plain PyTorch version on the card, at the
-   shapes the serving path gives it, and timed with CUDA events (median of
-   20 runs after warm-up; device time from CUDA-graph replays, plus the
-   eager per-call time) beside its plain version, one PyTorch library call
-   computing the same function where there is one, and its bound: the
-   larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s (H100 SXM
-   HBM3 and fp32 non-tensor peaks).  One JSON line ``{"kernels": [...]}``.
+   shapes the serving path or the facade gives it (Monte Carlo bit-exact at
+   256 samples per lane for {pi, poly} x {lcg, xoshiro128p} and two seeds),
+   and timed with CUDA events (median of 20 runs after warm-up; device time
+   from CUDA-graph replays, plus the eager per-call time) beside its plain
+   version, one PyTorch library call computing the same function where
+   there is one, and its bound: the larger of bytes over 3.35 TB/s (H100 SXM
+   HBM3) and instructions over the card's FP32 and INT32 dispatch rates.
+   Monte Carlo's instruction counts are read from its built kernels' SASS
+   (``cuobjdump``), and it gets two bounds of one lane beside the card's:
+   its generator's dependent chain (latency) and its instructions at one
+   per clock (dispatch).  One JSON line ``{"kernels": [...]}`` at the end.
 3. A reference check: the olmo-1b smoke model on the card (kernels) against
    the same parameters on the CPU (plain versions).
 4. OLMo-1B at full width, random weights from a seeded ``torch.Generator``,
@@ -27,14 +34,25 @@ and prints no result line):
    Every kernel's launch counter is set to 0 just before each request and
    read just after; softmax must launch in (a), uniform in (b), exp in (c).
    Every logit must be finite and every token inside the vocabulary.
-5. The last line: ``{"ok": true, "device": {...}}``.
+5. The kernel facade: every spec of ``repro_torch.api`` with an entry point
+   run through ``kernel(name).run`` under ``config(impl="cuda")`` at full
+   size (Monte Carlo at 2**26 samples, n_blocks 8 and 1024), held against
+   ``.ref`` or the plain version; the estimates within 0.002 of pi and 0.4.
+   The counters are set to 0 before the phase and read after it: every
+   kernel must have launched.  The logf and Monte-Carlo launch counts in the
+   JSON line are this phase's, the others the serving phase's.
+6. The last line: ``{"ok": true, "device": {...}}``.
 
 fp32 matmuls and convolutions are pinned to full fp32 (TF32 off).
 """
 
 from __future__ import annotations
 
+import functools
 import json
+import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -43,14 +61,133 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
-FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
-#: Operations per element of the COPIFT exp: z, rint, two Cody–Waite
-#: multiply-adds (4), clamp (2), convert, add, shift, seven Horner
-#: multiply-adds (14), scale multiply, two compare-selects (4).
-EXP_OPS = 27
-#: Integer operations per element of the uniform kernel: counter add,
-#: splitmix32 (9 each), the generator step, shift, convert, scale.
-UNIFORM_OPS = {"lcg": 1 + 9 + 4 + 3, "xoshiro128p": 2 + 2 * 9 + 1 + 3}
+#: Lanes per SM: an H100 SM has four schedulers, each issuing one warp
+#: instruction per clock, over 128 FP32 lanes and 64 INT32 lanes.  An INT32
+#: warp instruction holds its pipe for two clocks; FP32 and INT32
+#: instructions from the same scheduler overlap in their pipes, as the
+#: paper's integer and FP threads do, but share its one dispatch slot per
+#: clock.
+FP32_LANES_PER_SM = 128
+INT32_LANES_PER_SM = 64
+#: Latency between dependent integer ALU instructions (IADD3, LOP3, SHF,
+#: IMAD) on Hopper, in clocks: an assumption for the latency bound, not a
+#: measurement.
+ALU_LATENCY_CLOCKS = 4
+
+# Instructions per element, counted from the kernels' sources: (all
+# instructions, those of them that only the integer pipe executes: shifts,
+# logic, integer adds).  Multiplies and multiply-adds of integers
+# (IMAD) and int-to-float conversions may go to the FP32 pipe, so they
+# count only in the first.  These three kernels are bound by bytes with a
+# wide margin; Monte Carlo's counts, which decide its bound, are read from
+# the built kernel's SASS instead (``mc_sass_counts``).
+#: COPIFT exp: z, rint, two Cody-Waite multiply-adds, clamp (2), the float
+#: to int conversion, seven Horner multiply-adds, the scale multiply, two
+#: compare-selects (4); add and shift for the scale bits (integer pipe).
+EXP_OPS = (20, 2)
+#: Softmax: two exps (the sum sweep and the output sweep) with their
+#: subtractions, the max, the sum, an IEEE division (a reciprocal and three
+#: fix-up multiply-adds).
+SOFTMAX_OPS = (2 * (EXP_OPS[0] + 1) + 2 + 4, 2 * EXP_OPS[1])
+#: Uniform: counter add, splitmix32 (add, three shift-xor pairs on the
+#: integer pipe, two multiplies), the generator step, shift, conversion;
+#: one scale multiply.
+UNIFORM_OPS = {"lcg": (16, 10), "xoshiro128p": (24, 16)}
+#: logf: the x <= 0 compare-select (2), r = z*invc - 1, three Horner steps
+#: and the multiply by r, + logc, the exponent's conversion and k*ln2, two
+#: table loads; the integer phase: re-bias, index shift and mask, exponent
+#: shift, mantissa mask and subtraction (integer pipe).
+LOG_OPS = (18, 6)
+#: Dependent integer instructions per generator step on the path from one
+#: state to the next: the LCG's multiply-add; xoshiro128+'s shift then
+#: three-input xor (s2), or xor then rotate (s3).
+MC_CHAIN = {"lcg": 1, "xoshiro128p": 2}
+#: Opcodes that only the integer pipe executes, and the loop's own control
+#: (the branch, its compare, the uniform datapath), left out of the count.
+INT_PIPE_OPS = ("LOP3", "SHF", "IADD3")
+_SASS_LINE = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)\s*([^;]*);")
+
+
+def mc_sass_counts(library: Path) -> dict[tuple[str, str],
+                                          tuple[float, float]]:
+    """(all, integer-pipe) instructions per sample in the loop of each
+    Monte-Carlo kernel, read from the SASS of the built ``library``
+    (``cuobjdump -sass``).  A loop iteration's samples are its int-to-float
+    conversions over 2 (one per draw)."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = re.search(r"mc_kernelILb([01])ENS_\d+(Lcg|Xoshiro128p)", fn)
+        if not m:
+            continue
+        key = ("pi" if m.group(1) == "1" else "poly",
+               "lcg" if m.group(2) == "Lcg" else "xoshiro128p")
+        ins = [(int(a, 16), op.split(".")[0], args)
+               for a, op, args in _SASS_LINE.findall(fn)]
+        loops = [(int(t.group(1), 16), a) for a, op, args in ins
+                 if op == "BRA" and (t := re.search(r"0x([0-9a-f]+)", args))
+                 and int(t.group(1), 16) < a]
+        if not loops:
+            _fail(f"montecarlo SASS: no loop in {key}")
+        lo, hi = max(loops, key=lambda loop: loop[1] - loop[0])
+        body = [op for a, op, _ in ins if lo <= a <= hi
+                and op not in ("BRA", "ISETP") and not op.startswith("U")]
+        samples = body.count("I2FP") / 2
+        if not samples:
+            _fail(f"montecarlo SASS: no conversion in the loop of {key}")
+        counts[key] = (len(body) / samples,
+                       sum(op in INT_PIPE_OPS for op in body) / samples)
+    if len(counts) != 4:
+        _fail(f"montecarlo SASS: found the kernels {sorted(counts)}")
+    return counts
+
+
+class Card:
+    """The card's rates, from its SM count (``torch``) and its maximum SM
+    clock (``nvidia-smi``)."""
+
+    def __init__(self, torch, smi):
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
+        mhz = smi("clocks.max.sm", units=False)
+        self.clock_hz = float(mhz) * 1e6
+        self.fp32_per_s = self.sms * FP32_LANES_PER_SM * self.clock_hz
+        self.int32_per_s = self.sms * INT32_LANES_PER_SM * self.clock_hz
+
+    def describe(self) -> str:
+        return (f"rates: {self.sms} SMs at {self.clock_hz / 1e6:.0f} MHz: "
+                f"fp32 {self.fp32_per_s:.4g} instructions/s "
+                f"({2 * self.fp32_per_s:.4g} FLOP/s with a multiply-add as "
+                f"2), int32 {self.int32_per_s:.4g} instructions/s, "
+                f"device memory {HBM_BYTES_PER_S:.4g} B/s")
+
+    def bound(self, nbytes: float,
+              ops: tuple[float, float]) -> tuple[float, str]:
+        """The least time for ``nbytes`` of device memory and ``ops`` = (all
+        instructions, integer-pipe instructions), in ms, and what binds it.
+        Every instruction takes one of the four dispatch slots per SM and
+        clock (a warp instruction each, 128 lanes: the FP32 rate); the
+        integer-pipe ones also take the INT32 lanes (64 per SM)."""
+        total, int_pipe = ops
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = max(total / self.fp32_per_s,
+                    int_pipe / self.int32_per_s) * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    def latency_ms(self, steps: float, chain: int) -> float:
+        """The least time of ``steps`` sequential generator steps, each a
+        chain of ``chain`` dependent integer instructions."""
+        return steps * chain * ALU_LATENCY_CLOCKS / self.clock_hz * 1e3
+
+
+def _smi(fields: str, units: bool = True) -> str:
+    """``nvidia-smi --query-gpu=<fields>`` for the first card."""
+    fmt = "csv,noheader" if units else "csv,noheader,nounits"
+    return subprocess.run(["nvidia-smi", f"--query-gpu={fields}",
+                           f"--format={fmt}"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
 
 
 def _fail(msg: str) -> None:
@@ -102,12 +239,6 @@ def _times(kernel, plain, library) -> dict:
                 call_ms=_call_ms(kernel))
 
 
-def _bound(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def _bf16_ulp_err(got, want) -> float:
     """Largest |got - want| in units of one bf16 ulp of ``want``."""
     import torch
@@ -122,7 +253,7 @@ def _bf16_ulp_err(got, want) -> float:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_kernels(torch, gen) -> list[dict]:
+def check_kernels(torch, gen, card) -> list[dict]:
     from repro_torch.kernels import expf, prng, softmax
     from repro_torch.models.attention import NEG_INF
 
@@ -150,7 +281,8 @@ def check_kernels(torch, gen) -> list[dict]:
         else:
             torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-7)
         nbytes = 2 * x.numel() * x.element_size()
-        bound_ms, bound_by = _bound(nbytes, x.numel() * (2 * (EXP_OPS + 1) + 3))
+        bound_ms, bound_by = card.bound(
+            nbytes, [x.numel() * c for c in SOFTMAX_OPS])
         cases.append(dict(
             shape=[rows, cols], dtype=str(dt).removeprefix("torch."), what=what,
             max_abs_err=float((got.float() - want.float()).abs().max()),
@@ -176,7 +308,8 @@ def check_kernels(torch, gen) -> list[dict]:
     if e[0] != 0.0 or e[2] != 1.0 or e[4] != float("inf") or e[5] != 0.0:
         _fail(f"exp extremes: {e}")
     fin = torch.isfinite(want)
-    bound_ms, bound_by = _bound(8 * x.numel(), EXP_OPS * x.numel())
+    bound_ms, bound_by = card.bound(8 * x.numel(),
+                                    [x.numel() * c for c in EXP_OPS])
     cases = [dict(shape=[1, 16, 1, 1024, 1024], dtype="float32",
                   what="one KV chunk of prefill (c)",
                   max_abs_err=float((got - want)[fin].abs().max()),
@@ -197,7 +330,8 @@ def check_kernels(torch, gen) -> list[dict]:
                 want = prng.uniform_plain(seed, n, kind, "cuda")
                 if not torch.equal(got, want):
                     _fail(f"uniform {kind} n={n} seed={seed}: not bit-exact")
-            bound_ms, bound_by = _bound(4 * n, UNIFORM_OPS[kind] * n)
+            bound_ms, bound_by = card.bound(
+                4 * n, [n * c for c in UNIFORM_OPS[kind]])
             cases.append(dict(
                 shape=[n], dtype="float32", what=f"{what}, {kind}",
                 max_abs_err=0.0,
@@ -207,12 +341,117 @@ def check_kernels(torch, gen) -> list[dict]:
                          None)))
     entries.append(_entry("uniform", "src/repro_torch/csrc/prng.cu",
                           "src/repro/kernels/prng.py:46", cases, 0))
+    entries.append(check_log(torch, gen, card))
+    entries.append(check_montecarlo(torch, card))
     return entries
+
+
+def log_input(torch, gen):
+    """16 M positive normals, log-uniform over 1e-30..1e30."""
+    x = torch.empty(16 * 1024 * 1024, device="cuda")
+    x.uniform_(math.log(1e-30), math.log(1e30), generator=gen)
+    return torch.exp(x)
+
+
+def check_log(torch, gen, card) -> dict:
+    import numpy as np
+
+    from repro_torch.kernels import logf
+
+    x = log_input(torch, gen)
+    got, want = logf.log_cuda(x), logf.log_plain(x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    err = float((got - want).abs().max())
+    # Accuracy against fp64 over the whole normal range of the tests.
+    grid = np.logspace(-30, 30, 4097).astype(np.float32)
+    g = logf.log_cuda(torch.from_numpy(grid).cuda()).cpu().numpy()
+    np.testing.assert_allclose(g.astype(np.float64),
+                               np.log(grid.astype(np.float64)),
+                               rtol=1e-5, atol=6e-7)
+    # Outside the domain the kernel maps x <= 0 to 1, as its plain version.
+    odd = torch.tensor([-3.0, -0.0, 0.0, 1.0, 2.5], device="cuda")
+    torch.testing.assert_close(logf.log_cuda(odd), logf.log_plain(odd),
+                               rtol=1e-5, atol=1e-6)
+    bound_ms, bound_by = card.bound(8 * x.numel(),
+                                    [x.numel() * c for c in LOG_OPS])
+    cases = [dict(shape=[x.numel()], dtype="float32",
+                  what="16 M positive normals, log-uniform 1e-30..1e30",
+                  max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                  **_times(lambda: logf.log_cuda(x),
+                           lambda: logf.log_plain(x),
+                           lambda: torch.log(x)))]
+    print("logf: within rtol 1e-5 / atol 1e-6 of its plain version on 16 M "
+          "values; within rtol 1e-5 / atol 6e-7 of fp64 log on "
+          "logspace(-30, 30, 4097)")
+    return _entry("logf", "src/repro_torch/csrc/logf.cu",
+                  "src/repro/kernels/logf.py:34", cases, 0)
+
+
+MC_SAMPLES = 1 << 26
+
+
+def check_montecarlo(torch, card) -> dict:
+    from repro_torch.kernels import montecarlo as mc
+
+    variants = [(p, k) for p in ("pi", "poly") for k in ("lcg", "xoshiro128p")]
+    # Bit-exact against the plain version, at a moderate iters.
+    for problem, kind in variants:
+        for seed in (0, 2 ** 32 - 1):
+            kw = dict(kind=kind, problem=problem, iters=256, n_blocks=8)
+            got = mc.mc_partial_sums_cuda(seed, **kw)
+            want = mc.mc_blocked_plain(seed, device="cuda", **kw)
+            if not torch.equal(got, want):
+                _fail(f"montecarlo {problem} {kind} seed={seed}: partial "
+                      "sums not bit-exact")
+    print("montecarlo: partial sums bit-exact against the plain version for "
+          "{pi, poly} x {lcg, xoshiro128p}, seeds 0 and 2**32-1, n_blocks 8, "
+          "iters 256")
+    # Timed at full size: 2**26 samples, the facade's default n_blocks = 8
+    # (one warp per scheduler on 64 SMs) and n_blocks = 1024 (the card
+    # full).  The plain version takes one Python step per sample, so it is
+    # timed as one eager call.  Beside the card's bound, two bounds of one
+    # lane, which runs its samples in order: the dependent chain of its
+    # generator (latency) and its instructions at one per clock (dispatch).
+    from repro_torch.kernels import _build
+    sass = mc_sass_counts(_build.library_path("montecarlo"))
+    print("montecarlo: instructions per sample in the kernels' loops (SASS; "
+          "all, integer pipe):", json.dumps({f"{p} {k}": v for (p, k), v
+                                             in sorted(sass.items())}))
+    cases = []
+    for n_blocks in (8, 1024):
+        iters = MC_SAMPLES // (n_blocks * mc.LANES)
+        for problem, kind in variants:
+            kw = dict(kind=kind, problem=problem, iters=iters,
+                      n_blocks=n_blocks)
+            kernel = functools.partial(mc.mc_partial_sums_cuda, 42, **kw)
+            plain = functools.partial(mc.mc_blocked_plain, 42,
+                                      device="cuda", **kw)
+            samples = iters * n_blocks * mc.LANES
+            per_sample = sass[problem, kind]
+            bound_ms, bound_by = card.bound(
+                4 * n_blocks * mc.LANES, [samples * c for c in per_sample])
+            cases.append(dict(
+                shape=[n_blocks, mc.LANES], dtype="float32",
+                what=f"{problem} {kind}, 2**26 samples, n_blocks {n_blocks}",
+                iters=iters, max_abs_err=0.0,
+                bound_ms=bound_ms, bound_by=bound_by,
+                instructions_per_sample=per_sample,
+                latency_bound_ms=card.latency_ms(2 * iters, MC_CHAIN[kind]),
+                lane_dispatch_bound_ms=(iters * per_sample[0] / card.clock_hz
+                                     * 1e3),
+                ms=_device_ms(kernel), call_ms=_call_ms(kernel),
+                plain_ms=_call_ms(plain, reps=1 if n_blocks == 8 else 3,
+                                  warmup=0),
+                plain_timing="eager, one Python step per sample",
+                library_ms=None))
+    return _entry("montecarlo", "src/repro_torch/csrc/montecarlo.cu",
+                  "src/repro/kernels/montecarlo.py:76", cases, 1)
 
 
 def _entry(name, source, replaces, cases, headline) -> dict:
     """One kernel's line entry: the numbers of its headline case (the shape
-    the serving path launches most), every case beside them."""
+    its main path launches most), every case beside them."""
     h = cases[headline]
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=None,
@@ -258,9 +497,10 @@ def check_reference(torch) -> None:
 # ---------------------------------------------------------------------------
 
 def _counters():
-    from repro_torch.kernels import expf, prng, softmax
+    from repro_torch.kernels import expf, logf, montecarlo, prng, softmax
     return {"softmax": softmax.softmax_cuda, "exp": expf.exp_cuda,
-            "uniform": prng.uniform_cuda}
+            "uniform": prng.uniform_cuda, "logf": logf.log_cuda,
+            "montecarlo": montecarlo.mc_partial_sums_cuda}
 
 
 def _request(label, fn, vocab):
@@ -373,6 +613,117 @@ def serve_full(torch) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the kernel facade, every runnable spec through kernel(name).run
+# ---------------------------------------------------------------------------
+
+def _facade_cases(torch, gen):
+    """name -> a function that runs the spec's ``.run`` on the card at full
+    size and holds it against ``.ref`` (or the plain version where the spec
+    has no oracle), returning the largest error."""
+    from repro_torch.kernels import ops, softmax
+    from repro_torch.models.attention import NEG_INF
+
+    def expf(spec):
+        x = torch.empty(16 * 1024 * 1024, device="cuda").uniform_(
+            -90.0, 2.0, generator=gen)
+        x[::97] = NEG_INF
+        got, want = spec.run(x), spec.ref(x)
+        torch.testing.assert_close(got, want, rtol=2e-6, atol=1e-30)
+        return float((got - want).abs().max())
+
+    def logf(spec):
+        x = log_input(torch, gen)
+        got, want = spec.run(x), spec.ref(x)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        return float((got - want).abs().max())
+
+    def softmax_(spec):
+        err = 0.0
+        for rows, cols, dt in [(8192, 161, torch.float32),
+                               (64, 161, torch.float32),
+                               (16, 5120, torch.float32),
+                               (64, 32768, torch.float32),
+                               (64, 161, torch.bfloat16)]:
+            x = torch.randn(rows, cols, device="cuda", generator=gen) * 4
+            x[:, cols // 2 + 1:] = NEG_INF
+            x = x.to(dt)
+            got = spec.run(x)
+            if dt == torch.float32:
+                want = spec.ref(x)
+                torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-7)
+            else:
+                # The oracle subtracts the max in the input dtype, as the
+                # JAX oracle does; the kernel does it in fp32.  In bf16 the
+                # kernel is held to its plain version instead.
+                want = softmax.softmax_plain(x)
+                if _bf16_ulp_err(got, want) > 1.0:
+                    _fail("facade softmax bf16: more than 1 bf16 ulp from "
+                          "the plain version")
+            err = max(err, float((got.float() - want.float()).abs().max()))
+        return err
+
+    def prng(spec):
+        for kind in ("xoshiro128p", "lcg"):
+            for n in (50304, 1 << 24):
+                got = spec.run(2 ** 32 - 1, (n,), kind)
+                if not torch.equal(got, spec.ref(kind, 2 ** 32 - 1, (n,))):
+                    _fail(f"facade prng {kind} n={n}: not bit-exact")
+        return 0.0
+
+    def montecarlo(fn, truth):
+        def run(spec):
+            for n_blocks in (8, 1024):
+                est = spec.run(42, MC_SAMPLES, n_blocks=n_blocks)
+                want = fn(42, MC_SAMPLES, n_blocks=n_blocks, impl="reference")
+                if float(est) != float(want):
+                    _fail(f"facade {spec.name} n_blocks={n_blocks}: "
+                          f"{float(est)!r} != plain {float(want)!r}")
+                if not abs(float(est) - truth) < 0.002:
+                    _fail(f"facade {spec.name} n_blocks={n_blocks}: "
+                          f"estimate {float(est)!r} is not within 0.002 "
+                          f"of {truth}")
+                print(f"facade: {spec.name} n_blocks={n_blocks}: "
+                      f"{float(est)!r} (2**26 samples, equal to the plain "
+                      "version)")
+            return 0.0
+        return run
+
+    return {"expf": expf, "logf": logf, "softmax": softmax_, "prng": prng,
+            "pi_xoshiro128p": montecarlo(ops.mc_pi, math.pi),
+            "poly_xoshiro128p": montecarlo(ops.mc_poly, 0.4)}
+
+
+def check_facade(torch, gen) -> dict:
+    """Every spec of ``repro_torch.api`` that has an entry point, run through
+    ``kernel(name).run`` on the card under ``config(impl="cuda")``.  Every
+    launch counter is set to 0 just before and read just after; each kernel
+    must have launched."""
+    from repro_torch import api
+
+    cases = _facade_cases(torch, gen)
+    runnable = [s for s in api.specs() if s.op is not None]
+    missing = sorted({s.name for s in runnable} - set(cases))
+    if missing:
+        _fail(f"facade: no check for the runnable specs {missing}")
+    if api.kernel("montecarlo") is not api.kernel("pi_xoshiro128p"):
+        _fail("facade: 'montecarlo' does not resolve to pi_xoshiro128p")
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    errs = {}
+    with api.config(impl="cuda"):
+        for spec in runnable:
+            errs[spec.name] = cases[spec.name](spec)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    print("facade:", json.dumps(dict(max_abs_err=errs, launches=launches)))
+    for k, n in launches.items():
+        if n <= 0:
+            _fail(f"facade: the {k} kernel was not launched")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -390,19 +741,22 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = _smi("name,power.limit")
     print(smi)
+    card = Card(torch, _smi)
+    print(card.describe())
     t_build = _build.build_all()
     print(f"kernels built in {t_build:.1f} s into {_build.BUILD_DIR}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    entries = check_kernels(torch, gen)
+    entries = check_kernels(torch, gen, card)
     check_reference(torch)
-    launches = serve_full(torch)
+    serving = serve_full(torch)
+    facade = check_facade(torch, gen)
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        phase = "facade" if e["name"] in ("logf", "montecarlo") else "serving"
+        e["launches"] = (facade if phase == "facade" else serving)[e["name"]]
+        e["launches_counted_in"] = f"the {phase} phase"
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,24 +9,24 @@
 // The top 24 bits scale to [0, 1).  All integer arithmetic is uint32 with
 // its wraparound, so the bits equal the TPU kernel's exactly.
 //
-// Bound on the H100: device-memory bytes (4 written per element, for about
-// 20 integer operations).  The TPU kernel's (rows, 1024) tiling and the
-// padding it needs are gone: the grid-stride loop covers any n.
+// Bound on the H100: device-memory bytes, 4 written per element.  xoshiro128+
+// comes closest to the integer limit: its two splitmix32 calls take about 24
+// instructions per element, 16 of them shifts, logic and adds that only the
+// integer pipe runs, and an SM has 64 INT32 lanes against 128 FP32 lanes;
+// those 16 take 80 % of the time the 4 bytes do.  splitmix32 lives in
+// prng.cuh, shared with montecarlo.cu.  The TPU kernel's (rows, 1024) tiling
+// and the padding it needs are gone: the grid-stride loop covers any n.
 #include "common.cuh"
+#include "prng.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr uint32_t kPhi = 0x9e3779b9u;
-constexpr uint32_t kLcgA = 1664525u;
-constexpr uint32_t kLcgC = 1013904223u;
+using copift::kLcgA;
+using copift::kLcgC;
+using copift::kPhi;
+using copift::splitmix32;
 
-__device__ __forceinline__ uint32_t splitmix32(uint32_t z) {
-  z += kPhi;
-  z = (z ^ (z >> 16)) * 0x85ebca6bu;
-  z = (z ^ (z >> 13)) * 0xc2b2ae35u;
-  return z ^ (z >> 16);
-}
+constexpr int kThreads = 256;
 
 __global__ void uniform_kernel(float* __restrict__ out, int64_t n,
                                uint32_t seed, int kind) {
@@ -41,7 +41,7 @@ __global__ void uniform_kernel(float* __restrict__ out, int64_t n,
     } else {  // xoshiro128+
       bits = splitmix32(idx) + splitmix32(idx + 3u * kPhi);
     }
-    out[i] = static_cast<float>(bits >> 8) * 0x1p-24f;
+    out[i] = copift::uniform_from_bits(bits);
   }
 }
 

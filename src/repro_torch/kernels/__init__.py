@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels for the COPIFT exp, softmax and PRNG.
+"""Hand-written CUDA kernels for the COPIFT exp, log, softmax, PRNG and
+Monte-Carlo integration.
 
 Layout (per kernel): ``csrc/<name>.cu`` holds the kernel and its C
 launcher, ``<name>.py`` the wrapper that launches it and the plain PyTorch

@@ -25,7 +25,10 @@ import math
 import torch
 
 from repro_torch.kernels import expf as _exp
+from repro_torch.kernels import logf as _log
+from repro_torch.kernels import montecarlo as _mc
 from repro_torch.kernels import prng as _prng
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import softmax as _softmax
 
 _IMPLS = ("auto", "cuda", "reference")
@@ -92,6 +95,17 @@ def exp(x: torch.Tensor, impl: str | None = None) -> torch.Tensor:
     return _exp.exp_cuda(xf).to(x.dtype)
 
 
+def log(x: torch.Tensor, impl: str | None = None) -> torch.Tensor:
+    """COPIFT log (glibc-logf style, table gather) for positive normals;
+    fp32 compute, the result in ``x``'s dtype.  The kernel maps ``x <= 0``
+    to 1.0, as the JAX package's Pallas path does; the reference path is
+    ``log_ref`` with no such map, as in JAX."""
+    if not _use_kernel(impl, x.device):
+        return _ref.log_ref(x).to(x.dtype)
+    xf = x.to(torch.float32).contiguous()
+    return _log.log_cuda(xf).to(x.dtype)
+
+
 def softmax(x: torch.Tensor, axis: int = -1,
             impl: str | None = None) -> torch.Tensor:
     """COPIFT softmax.  The kernel runs over the last axis; another axis
@@ -118,3 +132,32 @@ def uniform(seed: int, shape: tuple[int, ...], kind: str = "xoshiro128p",
     else:
         u = _prng.uniform_plain(seed, n, kind, device)
     return u.reshape(shape)
+
+
+def _monte_carlo(problem: str, seed: int, n_samples: int, kind: str,
+                 n_blocks: int, impl: str | None,
+                 device: torch.device | str) -> torch.Tensor:
+    device = torch.device(device)
+    iters = n_samples // (n_blocks * _mc.LANES)
+    run = (_mc.mc_partial_sums_cuda if _use_kernel(impl, device)
+           else _mc.mc_blocked_plain)
+    sums = run(seed, kind=kind, problem=problem, iters=iters,
+               n_blocks=n_blocks, device=device)
+    return _mc.mc_estimate(sums, problem, iters)
+
+
+def mc_pi(seed: int, n_samples: int, kind: str = "xoshiro128p",
+          n_blocks: int = 8, impl: str | None = None,
+          device: torch.device | str = "cuda") -> torch.Tensor:
+    """π via hit-and-miss Monte Carlo over ``n_blocks × 1024`` lanes, each
+    taking ``n_samples // (n_blocks * 1024)`` samples; an fp32 scalar
+    tensor, NaN when that is 0."""
+    return _monte_carlo("pi", seed, n_samples, kind, n_blocks, impl, device)
+
+
+def mc_poly(seed: int, n_samples: int, kind: str = "xoshiro128p",
+            n_blocks: int = 8, impl: str | None = None,
+            device: torch.device | str = "cuda") -> torch.Tensor:
+    """∫₀¹ f for the Table-I polynomial via hit-and-miss Monte Carlo, as
+    ``mc_pi``."""
+    return _monte_carlo("poly", seed, n_samples, kind, n_blocks, impl, device)

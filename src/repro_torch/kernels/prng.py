@@ -12,33 +12,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import LCG_A, LCG_C
+from repro_torch.kernels.ref import (_MASK, _PHI, LCG_A, LCG_C, _mul32,
+                                     splitmix32, uniform_from_bits)
 
 KINDS = {"lcg": 0, "xoshiro128p": 1}
-
-_MASK = 0xFFFFFFFF
-_PHI = 0x9E3779B9
-
-# uint32 on the CPU: PyTorch has no uint32 ``+``, ``>>`` or ``<<`` there, so
-# the plain version holds each uint32 word in an int64 tensor and masks with
-# ``& 0xFFFFFFFF`` after every add and multiply.
-
-
-def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
-    """(a · c) mod 2**32 for a uint32 word ``a`` held in int64 and a uint32
-    constant ``c``.  The full product can pass 2**63; multiplying by the two
-    16-bit halves of ``c`` keeps every partial product below 2**48, so no
-    int64 overflow happens, and the low 32 bits are the uint32 product."""
-    lo = a * (c & 0xFFFF)
-    hi = ((a * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _MASK
-
-
-def _splitmix32(z: torch.Tensor) -> torch.Tensor:
-    z = (z + _PHI) & _MASK
-    z = _mul32(z ^ (z >> 16), 0x85EBCA6B)
-    z = _mul32(z ^ (z >> 13), 0xC2B2AE35)
-    return z ^ (z >> 16)
 
 
 def _check_args(seed: int, n: int, kind: str) -> None:
@@ -57,12 +34,12 @@ def uniform_plain(seed: int, n: int, kind: str = "xoshiro128p",
     _check_args(seed, n, kind)
     idx = (torch.arange(n, dtype=torch.int64, device=device) + int(seed)) & _MASK
     if kind == "lcg":
-        nxt = (_mul32(_splitmix32(idx), LCG_A) + LCG_C) & _MASK
+        nxt = (_mul32(splitmix32(idx), LCG_A) + LCG_C) & _MASK
         bits = (nxt >> 9) ^ nxt
     else:
-        bits = (_splitmix32(idx)
-                + _splitmix32((idx + 3 * _PHI) & _MASK)) & _MASK
-    return (bits >> 8).to(torch.float32) * 2.0 ** -24
+        bits = (splitmix32(idx)
+                + splitmix32((idx + 3 * _PHI) & _MASK)) & _MASK
+    return uniform_from_bits(bits)
 
 
 _ARGS = (_build.PTR, _build.I64, _build.U32, _build.INT, _build.PTR)

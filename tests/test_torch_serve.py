@@ -124,6 +124,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
+        "import repro_torch.api, repro_torch.core, repro_torch.kernels.ops\n"
+        "assert repro_torch.api.kernel('logf').op.startswith('repro_torch.')\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
         " 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
@@ -131,7 +133,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.'))\n"
         "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 15 else 0)\n")
+        "sys.exit(1 if bad or len(mods) < 20 else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
