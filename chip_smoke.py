@@ -13,6 +13,10 @@ and prints no result line):
 2. Every kernel held against its plain PyTorch version on the card, at the
    shapes the serving path or the facade gives it (Monte Carlo bit-exact at
    256 samples per lane for {pi, poly} x {lcg, xoshiro128p} and two seeds),
+   softmax also at the edges of its three paths (warp per row, a thread
+   block cluster per row, three sweeps), twice, bit-identical, and exp at a
+   ragged tail, a misaligned view (its scalar kernel) and the attention
+   correction's 16 K values; each case records the path it took,
    and timed with CUDA events (median of 20 runs after warm-up; device time
    from CUDA-graph replays, plus the eager per-call time) beside its plain
    version, one PyTorch library call computing the same function where
@@ -33,6 +37,8 @@ and prints no result line):
        (prefill takes the chunked attention path, the exp kernel's).
    Every kernel's launch counter is set to 0 just before each request and
    read just after; softmax must launch in (a), uniform in (b), exp in (c).
+   The per-path counters must show (a) and (b) on softmax's warp path,
+   (c)'s decode on its cluster path and (c)'s prefill on exp's vector path.
    Every logit must be finite and every token inside the vocabulary.
 5. The kernel facade: every spec of ``repro_torch.api`` with an entry point
    run through ``kernel(name).run`` under ``config(impl="cuda")`` at full
@@ -85,10 +91,9 @@ ALU_LATENCY_CLOCKS = 4
 #: to int conversion, seven Horner multiply-adds, the scale multiply, two
 #: compare-selects (4); add and shift for the scale bits (integer pipe).
 EXP_OPS = (20, 2)
-#: Softmax: two exps (the sum sweep and the output sweep) with their
-#: subtractions, the max, the sum, an IEEE division (a reciprocal and three
-#: fix-up multiply-adds).
-SOFTMAX_OPS = (2 * (EXP_OPS[0] + 1) + 2 + 4, 2 * EXP_OPS[1])
+#: Softmax: one exp with its subtraction, the max, the sum, an IEEE
+#: division (a reciprocal and three fix-up multiply-adds).
+SOFTMAX_OPS = (EXP_OPS[0] + 1 + 2 + 4, EXP_OPS[1])
 #: Uniform: counter add, splitmix32 (add, three shift-xor pairs on the
 #: integer pipe, two multiplies), the generator step, shift, conversion;
 #: one scale multiply.
@@ -259,21 +264,43 @@ def check_kernels(torch, gen, card) -> list[dict]:
 
     entries = []
 
-    # --- softmax: attention scores with masked (NEG_INF) columns.
+    # --- softmax: attention scores with masked (NEG_INF) columns, and row 0
+    # masked whole.
     cases = []
-    for rows, cols, dt, what in [(8192, 161, torch.float32, "prefill (a)"),
-                                 (64, 161, torch.float32, "decode (a)"),
-                                 (16, 5120, torch.float32, "decode (c)"),
-                                 (64, 32768, torch.float32, "long row"),
-                                 (64, 161, torch.bfloat16, "decode, bf16")]:
+    f32, bf16 = torch.float32, torch.bfloat16
+    for rows, cols, dt, what in [
+            (8192, 161, f32, "prefill (a)"),
+            (64, 161, f32, "decode (a)"),
+            (16, 5120, f32, "decode (c)"),
+            (64, 32768, f32, "long row"),
+            (64, 161, bf16, "decode, bf16"),
+            (64, 1024, f32, "widest row of the warp path"),
+            (64, 1025, f32, "narrowest row of the cluster path"),
+            (8191, 161, f32, "prefill shape, ragged last block"),
+            (64, 32768, bf16, "long row, bf16"),
+            (16, 5121, bf16, "cluster path, 4-byte loads, bf16"),
+            (2, softmax.CLUSTER_MAX_COLS, f32,
+             "widest row of the cluster path"),
+            (2, 1 << 20, f32, "beyond the cluster path")]:
         x = torch.randn(rows, cols, device="cuda", generator=gen) * 4
         x[:, cols // 2 + 1:] = NEG_INF
+        x[0] = NEG_INF
         x = x.to(dt).contiguous()
+        path = softmax.softmax_plan(rows, cols, dt).path
+        before = dict(softmax.softmax_cuda.path_launches)
         got = softmax.softmax_cuda(x)
+        again = softmax.softmax_cuda(x)
         want = softmax.softmax_plain(x)
         torch.cuda.synchronize()
+        after = softmax.softmax_cuda.path_launches
+        if {k: after[k] - before[k] for k in after} != {
+                k: 2 * (k == path) for k in after}:
+            _fail(f"softmax {what}: launches {before} -> {after}, expected "
+                  f"two on the {path} path")
         if got.dtype != x.dtype:
             _fail(f"softmax {what}: dtype {got.dtype} != {x.dtype}")
+        if not torch.equal(got, again):
+            _fail(f"softmax {what}: two runs differ")
         if dt == torch.bfloat16:
             ulps = _bf16_ulp_err(got, want)
             if ulps > 1.0:
@@ -285,6 +312,7 @@ def check_kernels(torch, gen, card) -> list[dict]:
             nbytes, [x.numel() * c for c in SOFTMAX_OPS])
         cases.append(dict(
             shape=[rows, cols], dtype=str(dt).removeprefix("torch."), what=what,
+            path=path,
             max_abs_err=float((got.float() - want.float()).abs().max()),
             bound_ms=bound_ms, bound_by=bound_by,
             **_times(lambda: softmax.softmax_cuda(x),
@@ -293,30 +321,46 @@ def check_kernels(torch, gen, card) -> list[dict]:
     entries.append(_entry("softmax", "src/repro_torch/csrc/softmax.cu",
                           "src/repro/kernels/softmax_tpu.py:44", cases, 1))
 
-    # --- exp: one chunk of chunked attention, then the extremes.
-    x = torch.empty(16 * 1024 * 1024, device="cuda").uniform_(-90.0, 2.0,
-                                                               generator=gen)
-    x[::97] = NEG_INF
+    # --- exp: one chunk of chunked attention, the extremes, a ragged tail,
+    # a misaligned view and the attention correction's shape.
     ext = torch.tensor([-1e4, -87.5, 0.0, 88.9, 1e4, NEG_INF, float("-inf"),
                         float("inf"), float("nan")], device="cuda")
-    for inp in (ext, x):
+    for inp in (ext, torch.cat([ext[:1], ext])[1:]):   # aligned, misaligned
         got, want = expf.exp_cuda(inp), expf.exp_plain(inp)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=2e-6, atol=1e-30,
                                    equal_nan=True)
-    e = expf.exp_cuda(ext).tolist()
-    if e[0] != 0.0 or e[2] != 1.0 or e[4] != float("inf") or e[5] != 0.0:
-        _fail(f"exp extremes: {e}")
-    fin = torch.isfinite(want)
-    bound_ms, bound_by = card.bound(8 * x.numel(),
-                                    [x.numel() * c for c in EXP_OPS])
-    cases = [dict(shape=[1, 16, 1, 1024, 1024], dtype="float32",
-                  what="one KV chunk of prefill (c)",
-                  max_abs_err=float((got - want)[fin].abs().max()),
-                  bound_ms=bound_ms, bound_by=bound_by,
-                  **_times(lambda: expf.exp_cuda(x),
-                           lambda: expf.exp_plain(x),
-                           lambda: torch.exp(x)))]
+        e = got.tolist()
+        if e[0] != 0.0 or e[2] != 1.0 or e[4] != float("inf") or e[5] != 0.0:
+            _fail(f"exp extremes: {e}")
+    cases = []
+    n16m = 16 * 1024 * 1024
+    for n, offset, shape, what in [
+            (n16m, 0, [1, 16, 1, 1024, 1024], "one KV chunk of prefill (c)"),
+            (n16m + 3, 0, [n16m + 3], "16 M + 3: a tail of 3"),
+            (n16m, 1, [n16m], "16 M, a view at a 4-byte offset"),
+            (16384, 0, [1, 16, 1, 1024], "the correction of prefill (c)")]:
+        buf = torch.empty(n + offset, device="cuda").uniform_(-90.0, 2.0,
+                                                              generator=gen)
+        buf[::97] = NEG_INF
+        x = buf[offset:]
+        before = dict(expf.exp_cuda.path_launches)
+        got, want = expf.exp_cuda(x), expf.exp_plain(x)
+        torch.cuda.synchronize()
+        path = expf.exp_plan(n, x.data_ptr(), got.data_ptr()).path
+        after = expf.exp_cuda.path_launches
+        if {k: after[k] - before[k] for k in after} != {
+                k: int(k == path) for k in after}:
+            _fail(f"exp {what}: launches {before} -> {after}, expected one "
+                  f"on the {path} path")
+        torch.testing.assert_close(got, want, rtol=2e-6, atol=1e-30)
+        bound_ms, bound_by = card.bound(8 * n, [n * c for c in EXP_OPS])
+        cases.append(dict(shape=shape, dtype="float32", what=what, path=path,
+                          max_abs_err=float((got - want).abs().max()),
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          **_times(lambda: expf.exp_cuda(x),
+                                   lambda: expf.exp_plain(x),
+                                   lambda: torch.exp(x))))
     entries.append(_entry("exp", "src/repro_torch/csrc/expf.cu",
                           "src/repro/kernels/expf.py:38", cases, 0))
 
@@ -503,16 +547,30 @@ def _counters():
             "montecarlo": montecarlo.mc_partial_sums_cuda}
 
 
-def _request(label, fn, vocab):
-    """Run one request with every launch counter at 0; check its output."""
-    import torch
+def _reset_counters() -> dict:
+    """Set every launch counter, and every per-path counter, to 0."""
     counters = _counters()
     for c in counters.values():
         c.launches = 0
+        for path in getattr(c, "path_launches", {}):
+            c.path_launches[path] = 0
+    return counters
+
+
+def _path_launches(counters) -> dict:
+    return {k: dict(c.path_launches) for k, c in counters.items()
+            if hasattr(c, "path_launches")}
+
+
+def _request(label, fn, vocab):
+    """Run one request with every launch counter at 0; check its output."""
+    import torch
+    counters = _reset_counters()
     t0 = time.perf_counter()
     res = fn()
     wall = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
+    paths = _path_launches(counters)
     B, n = res.tokens.shape[0], res.steps
     if res.logits.shape != (B, n, vocab):
         _fail(f"{label}: logits shape {tuple(res.logits.shape)}")
@@ -524,7 +582,8 @@ def _request(label, fn, vocab):
                new_tokens=n, prefill_ms=res.prefill_s * 1e3,
                decode_ms_per_token=res.decode_s * 1e3 / n,
                tokens_per_s=B * n / (res.prefill_s + res.decode_s),
-               wall_s_with_init=wall, launches=launches)
+               wall_s_with_init=wall, launches=launches,
+               path_launches=paths)
     print("serve:", json.dumps(row))
     return res, row
 
@@ -576,6 +635,8 @@ def serve_full(torch) -> dict:
     argv = ["--arch", "olmo-1b", "--variant", "full", "--batch", "4",
             "--prompt-len", "128", "--gen", "32", "--device", "cuda"]
     total = {k: 0 for k in _counters()}
+    paths = {k: dict.fromkeys(v, 0)
+             for k, v in _path_launches(_counters()).items()}
     rows = []
 
     a1, row = _request("a: greedy, run 1", lambda: serve.main(argv), V)
@@ -606,11 +667,28 @@ def serve_full(torch) -> dict:
     for r in rows:
         for k, v in r["launches"].items():
             total[k] += v
+        for k, by_path in r["path_launches"].items():
+            for path, v in by_path.items():
+                paths[k][path] += v
     need = {"softmax": rows[0], "uniform": rows[2], "exp": rows[3]}
     for k, r in need.items():
         if r["launches"][k] <= 0:
             _fail(f"the {k} kernel was not launched in request {r['request']}")
-    return total
+    # (a) and (b): 8192x161 prefill and 64x161 decode, on the warp path;
+    # (c): 16x5120 decode on the cluster path, its chunked prefill on exp's
+    # vector path.
+    for r in rows[:3]:
+        sm = r["path_launches"]["softmax"]
+        if sm["warp"] <= 0 or sm["cluster"] or sm["sweep"]:
+            _fail(f"{r['request']}: softmax paths {sm}, expected the warp "
+                  "path only")
+    sm = rows[3]["path_launches"]["softmax"]
+    ex = rows[3]["path_launches"]["exp"]
+    if sm["cluster"] <= 0 or sm["warp"] or sm["sweep"]:
+        _fail(f"(c): softmax paths {sm}, expected the cluster path only")
+    if ex["vector"] <= 0 or ex["scalar"]:
+        _fail(f"(c): exp paths {ex}, expected the vector path only")
+    return total, paths
 
 
 # ---------------------------------------------------------------------------
@@ -708,9 +786,7 @@ def check_facade(torch, gen) -> dict:
         _fail(f"facade: no check for the runnable specs {missing}")
     if api.kernel("montecarlo") is not api.kernel("pi_xoshiro128p"):
         _fail("facade: 'montecarlo' does not resolve to pi_xoshiro128p")
-    counters = _counters()
-    for c in counters.values():
-        c.launches = 0
+    counters = _reset_counters()
     errs = {}
     with api.config(impl="cuda"):
         for spec in runnable:
@@ -751,12 +827,14 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     entries = check_kernels(torch, gen, card)
     check_reference(torch)
-    serving = serve_full(torch)
+    serving, serving_paths = serve_full(torch)
     facade = check_facade(torch, gen)
     for e in entries:
         phase = "facade" if e["name"] in ("logf", "montecarlo") else "serving"
         e["launches"] = (facade if phase == "facade" else serving)[e["name"]]
         e["launches_counted_in"] = f"the {phase} phase"
+        if e["name"] in serving_paths:
+            e["launches_by_path"] = serving_paths[e["name"]]
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

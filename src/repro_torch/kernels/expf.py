@@ -4,12 +4,15 @@ PyTorch version.
 The kernel replaces the JAX package's ``repro/kernels/expf.py:_exp_kernel``.
 ``exp_phases`` is the plain version of the device function in
 ``csrc/copift_exp.cuh``, which the softmax kernel shares; it keeps the
-kernel's phase order so that the two agree to fp32 rounding.
+kernel's phase order so that the two agree to fp32 rounding.  ``exp_plan``
+picks the kernel's vector or scalar path by alignment;
+``exp_cuda.path_launches`` counts the launches of each.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -44,18 +47,47 @@ def exp_plain(x: torch.Tensor) -> torch.Tensor:
     return exp_phases(x.to(torch.float32), clamp_hi=True)
 
 
-_ARGS = (_build.PTR, _build.PTR, _build.I64, _build.PTR)
+class ExpPlan(NamedTuple):
+    """The kernel of ``csrc/expf.cu`` an input takes: ``"vector"`` over
+    ``n_vec4`` float4s and a scalar tail of ``n_tail`` elements, or
+    ``"scalar"`` over all of them."""
+    path: str
+    n_vec4: int
+    n_tail: int
+
+
+def exp_plan(n: int, x_ptr: int, y_ptr: int) -> ExpPlan:
+    """The vector kernel when both pointers are 16-byte aligned, else the
+    scalar one: chosen by alignment alone."""
+    if x_ptr % 16 or y_ptr % 16:
+        return ExpPlan("scalar", 0, n)
+    return ExpPlan("vector", n // 4, n % 4)
+
+
+_ARGS = {"scalar": (_build.PTR, _build.PTR, _build.I64, _build.PTR),
+         "vector": (_build.PTR, _build.PTR, _build.I64, _build.I64,
+                    _build.PTR)}
 
 
 def exp_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/expf.cu`` on a contiguous fp32 CUDA tensor."""
+    """Launch ``csrc/expf.cu`` on a contiguous fp32 CUDA tensor, with the
+    kernel ``exp_plan`` gives its alignment."""
     _build.check_cuda_tensor(x, (torch.float32,), "exp_cuda")
     y = torch.empty_like(x)
-    if x.numel():
-        _build.launch("expf", "copift_exp_f32", _ARGS, x.data_ptr(),
-                      y.data_ptr(), x.numel(), _build.stream(x))
+    n = x.numel()
+    if n:
+        plan = exp_plan(n, x.data_ptr(), y.data_ptr())
+        if plan.path == "vector":
+            _build.launch("expf", "copift_exp_vec_f32", _ARGS["vector"],
+                          x.data_ptr(), y.data_ptr(), plan.n_vec4, n,
+                          _build.stream(x))
+        else:
+            _build.launch("expf", "copift_exp_f32", _ARGS["scalar"],
+                          x.data_ptr(), y.data_ptr(), n, _build.stream(x))
         exp_cuda.launches += 1
+        exp_cuda.path_launches[plan.path] += 1
     return y
 
 
 exp_cuda.launches = 0
+exp_cuda.path_launches = {"vector": 0, "scalar": 0}
