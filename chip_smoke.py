@@ -11,21 +11,28 @@ and prints no result line):
    the build of every CUDA kernel from ``src/repro_torch/csrc`` (nvcc into
    ``build/``).
 2. Every kernel held against its plain PyTorch version on the card, at the
-   shapes the serving path or the facade gives it (Monte Carlo bit-exact at
-   256 samples per lane for {pi, poly} x {lcg, xoshiro128p} and two seeds),
-   softmax also at the edges of its three paths (warp per row, a thread
-   block cluster per row, three sweeps), twice, bit-identical, and exp at a
-   ragged tail, a misaligned view (its scalar kernel) and the attention
-   correction's 16 K values; each case records the path it took,
-   and timed with CUDA events (median of 20 runs after warm-up; device time
+   shapes the serving path or the facade gives it, and at the edges of each
+   kernel's paths; each case records the path it took.  softmax at the edges of
+   its three paths (warp per row, a thread block cluster per row, three sweeps),
+   twice, bit-identical; exp and logf at 16 M, a ragged tail, a misaligned view
+   (their scalar kernels), exp also at the attention correction's 16 K values,
+   logf also against fp64 on a 4097-point grid and outside its domain, through
+   both kernels; Monte Carlo bit-exact for {pi, poly} x {lcg, xoshiro128p} and
+   two seeds, through the wrapper at 256 samples per lane and through each
+   path's launcher (the segment path at S 2, 8 and 32) at 0, 1, 7 and 257.  Each
+   case is timed with CUDA events (median of 20 runs after warm-up; device time
    from CUDA-graph replays, plus the eager per-call time) beside its plain
-   version, one PyTorch library call computing the same function where
-   there is one, and its bound: the larger of bytes over 3.35 TB/s (H100 SXM
-   HBM3) and instructions over the card's FP32 and INT32 dispatch rates.
-   Monte Carlo's instruction counts are read from its built kernels' SASS
-   (``cuobjdump``), and it gets two bounds of one lane beside the card's:
-   its generator's dependent chain (latency) and its instructions at one
-   per clock (dispatch).  One JSON line ``{"kernels": [...]}`` at the end.
+   version, one PyTorch library call computing the same function where there is
+   one, and its bound: the larger of bytes over 3.35 TB/s (H100 SXM HBM3) and
+   instructions over the card's FP32 and INT32 dispatch rates.  Monte Carlo's
+   instruction counts are read from its lane kernels' SASS (``cuobjdump``) and
+   bound both paths; it gets two bounds of one lane beside the card's: its
+   generator's dependent chain (latency) and its instructions at one per clock
+   (dispatch).  Its 2**26-sample cases are held bit for bit against the plain
+   version's timed call.  Two design sweeps run in the same phase: logf's three
+   table gathers (``tools/logf_variants.py``, built beside the kernels) and
+   every segment count S of Monte Carlo's segment path
+   (``tools/mc_segments.py``).  One JSON line ``{"kernels": [...]}`` at the end.
 3. A reference check: the olmo-1b smoke model on the card (kernels) against
    the same parameters on the CPU (plain versions).
 4. OLMo-1B at full width, random weights from a seeded ``torch.Generator``,
@@ -45,8 +52,10 @@ and prints no result line):
    size (Monte Carlo at 2**26 samples, n_blocks 8 and 1024), held against
    ``.ref`` or the plain version; the estimates within 0.002 of pi and 0.4.
    The counters are set to 0 before the phase and read after it: every
-   kernel must have launched.  The logf and Monte-Carlo launch counts in the
-   JSON line are this phase's, the others the serving phase's.
+   kernel must have launched, logf on its vector path, Monte Carlo on its
+   segment path at n_blocks 8 and its lane path at 1024.  The logf and
+   Monte-Carlo launch counts (and counts by path) in the JSON line are this
+   phase's, the others the serving phase's.
 6. The last line: ``{"ok": true, "device": {...}}``.
 
 fp32 matmuls and convolutions are pinned to full fp32 (TF32 off).
@@ -258,7 +267,7 @@ def _bf16_ulp_err(got, want) -> float:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_kernels(torch, gen, card) -> list[dict]:
+def check_kernels(torch, gen, card, variants_build) -> list[dict]:
     from repro_torch.kernels import expf, prng, softmax
     from repro_torch.models.attention import NEG_INF
 
@@ -385,51 +394,89 @@ def check_kernels(torch, gen, card) -> list[dict]:
                          None)))
     entries.append(_entry("uniform", "src/repro_torch/csrc/prng.cu",
                           "src/repro/kernels/prng.py:46", cases, 0))
-    entries.append(check_log(torch, gen, card))
+    entries.append(check_log(torch, gen, card, variants_build))
     entries.append(check_montecarlo(torch, card))
     return entries
 
 
-def log_input(torch, gen):
-    """16 M positive normals, log-uniform over 1e-30..1e30."""
-    x = torch.empty(16 * 1024 * 1024, device="cuda")
+def log_input(torch, gen, n: int = 16 * 1024 * 1024, offset: int = 0):
+    """n positive normals, log-uniform over 1e-30..1e30: a view ``offset``
+    values into a fresh buffer (an offset of 1 is 4 bytes past 16-byte
+    alignment)."""
+    x = torch.empty(n + offset, device="cuda")
     x.uniform_(math.log(1e-30), math.log(1e30), generator=gen)
-    return torch.exp(x)
+    return torch.exp(x)[offset:]
 
 
-def check_log(torch, gen, card) -> dict:
+def _log_paths(torch, x, what):
+    """log_cuda(x) with a check that it launched once, on the path
+    ``log_plan`` gives; returns (result, path)."""
+    from repro_torch.kernels import logf
+    before = dict(logf.log_cuda.path_launches)
+    got = logf.log_cuda(x)
+    torch.cuda.synchronize()
+    path = logf.log_plan(x.numel(), x.data_ptr(), got.data_ptr()).path
+    after = logf.log_cuda.path_launches
+    if {k: after[k] - before[k] for k in after} != {
+            k: int(k == path) for k in after}:
+        _fail(f"logf {what}: launches {before} -> {after}, expected one on "
+              f"the {path} path")
+    return got, path
+
+
+def check_log(torch, gen, card, variants_build) -> dict:
     import numpy as np
 
     from repro_torch.kernels import logf
 
-    x = log_input(torch, gen)
-    got, want = logf.log_cuda(x), logf.log_plain(x)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    err = float((got - want).abs().max())
-    # Accuracy against fp64 over the whole normal range of the tests.
+    # Accuracy against fp64 over the whole normal range of the tests, and
+    # outside the domain (x <= 0 maps to 1; NaN and inf give the plain
+    # version's finite values), through both kernels: an aligned copy takes
+    # the vector kernel, a view at a 4-byte offset the scalar one.
     grid = np.logspace(-30, 30, 4097).astype(np.float32)
-    g = logf.log_cuda(torch.from_numpy(grid).cuda()).cpu().numpy()
-    np.testing.assert_allclose(g.astype(np.float64),
-                               np.log(grid.astype(np.float64)),
-                               rtol=1e-5, atol=6e-7)
-    # Outside the domain the kernel maps x <= 0 to 1, as its plain version.
-    odd = torch.tensor([-3.0, -0.0, 0.0, 1.0, 2.5], device="cuda")
-    torch.testing.assert_close(logf.log_cuda(odd), logf.log_plain(odd),
-                               rtol=1e-5, atol=1e-6)
-    bound_ms, bound_by = card.bound(8 * x.numel(),
-                                    [x.numel() * c for c in LOG_OPS])
-    cases = [dict(shape=[x.numel()], dtype="float32",
-                  what="16 M positive normals, log-uniform 1e-30..1e30",
-                  max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
-                  **_times(lambda: logf.log_cuda(x),
-                           lambda: logf.log_plain(x),
-                           lambda: torch.log(x)))]
-    print("logf: within rtol 1e-5 / atol 1e-6 of its plain version on 16 M "
-          "values; within rtol 1e-5 / atol 6e-7 of fp64 log on "
-          "logspace(-30, 30, 4097)")
-    return _entry("logf", "src/repro_torch/csrc/logf.cu",
-                  "src/repro/kernels/logf.py:34", cases, 0)
+    odd = [-3.0, -0.0, 0.0, 1.0, 2.5, float("nan"), float("inf"),
+           float("-inf")]
+    for offset, path in ((0, "vector"), (1, "scalar")):
+        for vals in (grid, np.array(odd, np.float32)):
+            buf = torch.zeros(len(vals) + offset, device="cuda")
+            buf[offset:] = torch.from_numpy(vals).cuda()
+            got, took = _log_paths(torch, buf[offset:], f"{len(vals)} values")
+            if took != path:
+                _fail(f"logf: offset {offset} took the {took} path")
+            if vals is grid:
+                np.testing.assert_allclose(
+                    got.cpu().numpy().astype(np.float64),
+                    np.log(grid.astype(np.float64)), rtol=1e-5, atol=6e-7)
+            torch.testing.assert_close(got, logf.log_plain(buf[offset:]),
+                                       rtol=1e-5, atol=1e-6)
+    cases = []
+    n16m = 16 * 1024 * 1024
+    for n, offset, what in [
+            (n16m, 0, "16 M positive normals, log-uniform 1e-30..1e30"),
+            (n16m + 3, 0, "16 M + 3: a tail of 3"),
+            (n16m, 1, "16 M, a view at a 4-byte offset")]:
+        x = log_input(torch, gen, n, offset)
+        got, path = _log_paths(torch, x, what)
+        want = logf.log_plain(x)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        bound_ms, bound_by = card.bound(8 * n, [n * c for c in LOG_OPS])
+        cases.append(dict(shape=[n], dtype="float32", what=what, path=path,
+                          max_abs_err=float((got - want).abs().max()),
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          **_times(lambda: logf.log_cuda(x),
+                                   lambda: logf.log_plain(x),
+                                   lambda: torch.log(x))))
+    print("logf: within rtol 1e-5 / atol 1e-6 of its plain version at 16 M, "
+          "16 M + 3 and a misaligned 16 M view, and outside the domain; "
+          "within rtol 1e-5 / atol 6e-7 of fp64 log on logspace(-30, 30, "
+          "4097); through the vector and the scalar kernel")
+    from tools import logf_variants
+    gathers = logf_variants.measure(variants_build, log_input(torch, gen))
+    print("logf gathers:", json.dumps(gathers))
+    entry = _entry("logf", "src/repro_torch/csrc/logf.cu",
+                   "src/repro/kernels/logf.py:34", cases, 0)
+    entry["gather_variants_ms"] = gathers["ms"]
+    return entry
 
 
 MC_SAMPLES = 1 << 26
@@ -437,9 +484,13 @@ MC_SAMPLES = 1 << 26
 
 def check_montecarlo(torch, card) -> dict:
     from repro_torch.kernels import montecarlo as mc
+    from tools import mc_segments
 
     variants = [(p, k) for p in ("pi", "poly") for k in ("lcg", "xoshiro128p")]
-    # Bit-exact against the plain version, at a moderate iters.
+    # Bit-exact against the plain version at n_blocks 8: the wrapper at
+    # iters 256 (mc_plan's S = 2), and each path through its launcher, the
+    # lane kernel and the segment kernel with an explicit S, at iters 0, 1,
+    # 7 (empty segments) and 257 (ragged ones).
     for problem, kind in variants:
         for seed in (0, 2 ** 32 - 1):
             kw = dict(kind=kind, problem=problem, iters=256, n_blocks=8)
@@ -448,29 +499,58 @@ def check_montecarlo(torch, card) -> dict:
             if not torch.equal(got, want):
                 _fail(f"montecarlo {problem} {kind} seed={seed}: partial "
                       "sums not bit-exact")
+            for iters in (0, 1, 7, 257):
+                kw = dict(kind=kind, problem=problem, iters=iters, n_blocks=8)
+                want = mc.mc_blocked_plain(seed, device="cuda", **kw)
+                runs = {"lane": mc_segments.run_lanes(seed, **kw)}
+                for segments in (2, 8, 32):
+                    runs[f"S {segments}"] = mc_segments.run_segments(
+                        seed, segments=segments, **kw)
+                for what, got in runs.items():
+                    if not torch.equal(got, want):
+                        _fail(f"montecarlo {what} {kw} seed={seed}: not "
+                              "bit-exact")
     print("montecarlo: partial sums bit-exact against the plain version for "
-          "{pi, poly} x {lcg, xoshiro128p}, seeds 0 and 2**32-1, n_blocks 8, "
-          "iters 256")
+          "{pi, poly} x {lcg, xoshiro128p}, seeds 0 and 2**32-1, n_blocks 8: "
+          "the wrapper at iters 256, the lane path and the segment path "
+          "(S 2, 8 and 32) at iters 0, 1, 7 and 257")
     # Timed at full size: 2**26 samples, the facade's default n_blocks = 8
-    # (one warp per scheduler on 64 SMs) and n_blocks = 1024 (the card
+    # (the segment path) and n_blocks = 1024 (the lane path, the card
     # full).  The plain version takes one Python step per sample, so it is
-    # timed as one eager call.  Beside the card's bound, two bounds of one
-    # lane, which runs its samples in order: the dependent chain of its
-    # generator (latency) and its instructions at one per clock (dispatch).
+    # timed as one eager call; the kernel's result is held bit for bit
+    # against that call's.  The bound is the work of 2**26 samples at the
+    # lane kernel's instructions per sample (its SASS), whichever path
+    # runs.  Beside it, two bounds of one lane of the lane path, which runs
+    # its samples in order: the dependent chain of its generator (latency)
+    # and its instructions at one per clock (dispatch).
     from repro_torch.kernels import _build
     sass = mc_sass_counts(_build.library_path("montecarlo"))
-    print("montecarlo: instructions per sample in the kernels' loops (SASS; "
-          "all, integer pipe):", json.dumps({f"{p} {k}": v for (p, k), v
-                                             in sorted(sass.items())}))
+    print("montecarlo: instructions per sample in the lane kernels' loops "
+          "(SASS; all, integer pipe):", json.dumps({f"{p} {k}": v for (p, k), v
+                                                    in sorted(sass.items())}))
     cases = []
     for n_blocks in (8, 1024):
         iters = MC_SAMPLES // (n_blocks * mc.LANES)
+        segments = mc.mc_plan(n_blocks * mc.LANES, iters)
         for problem, kind in variants:
             kw = dict(kind=kind, problem=problem, iters=iters,
                       n_blocks=n_blocks)
             kernel = functools.partial(mc.mc_partial_sums_cuda, 42, **kw)
-            plain = functools.partial(mc.mc_blocked_plain, 42,
-                                      device="cuda", **kw)
+            plain_out = []
+            plain_ms = _call_ms(lambda: plain_out.append(mc.mc_blocked_plain(
+                42, device="cuda", **kw)), reps=1 if n_blocks == 8 else 3,
+                warmup=0)
+            before = dict(mc.mc_partial_sums_cuda.path_launches)
+            got = kernel()
+            after = mc.mc_partial_sums_cuda.path_launches
+            path = "lane" if segments == 1 else "segment"
+            if {k: after[k] - before[k] for k in after} != {
+                    k: int(k == path) for k in after}:
+                _fail(f"montecarlo {kw}: launches {before} -> {after}, "
+                      f"expected one on the {path} path")
+            if not torch.equal(got, plain_out[-1]):
+                _fail(f"montecarlo {kw}: not bit-exact against the plain "
+                      "version at 2**26 samples")
             samples = iters * n_blocks * mc.LANES
             per_sample = sass[problem, kind]
             bound_ms, bound_by = card.bound(
@@ -478,19 +558,24 @@ def check_montecarlo(torch, card) -> dict:
             cases.append(dict(
                 shape=[n_blocks, mc.LANES], dtype="float32",
                 what=f"{problem} {kind}, 2**26 samples, n_blocks {n_blocks}",
-                iters=iters, max_abs_err=0.0,
+                iters=iters, path=path, segments=segments, max_abs_err=0.0,
                 bound_ms=bound_ms, bound_by=bound_by,
                 instructions_per_sample=per_sample,
                 latency_bound_ms=card.latency_ms(2 * iters, MC_CHAIN[kind]),
                 lane_dispatch_bound_ms=(iters * per_sample[0] / card.clock_hz
                                      * 1e3),
                 ms=_device_ms(kernel), call_ms=_call_ms(kernel),
-                plain_ms=_call_ms(plain, reps=1 if n_blocks == 8 else 3,
-                                  warmup=0),
+                plain_ms=plain_ms,
                 plain_timing="eager, one Python step per sample",
                 library_ms=None))
-    return _entry("montecarlo", "src/repro_torch/csrc/montecarlo.cu",
-                  "src/repro/kernels/montecarlo.py:76", cases, 1)
+    print("montecarlo: bit-exact against the plain version at 2**26 samples, "
+          "n_blocks 8 (segment path) and 1024 (lane path)")
+    swept = mc_segments.sweep(MC_SAMPLES)
+    print("montecarlo segments:", json.dumps(swept))
+    entry = _entry("montecarlo", "src/repro_torch/csrc/montecarlo.cu",
+                   "src/repro/kernels/montecarlo.py:76", cases, 1)
+    entry["segment_sweep"] = swept
+    return entry
 
 
 def _entry(name, source, replaces, cases, headline) -> dict:
@@ -700,6 +785,8 @@ def _facade_cases(torch, gen):
     size and holds it against ``.ref`` (or the plain version where the spec
     has no oracle), returning the largest error."""
     from repro_torch.kernels import ops, softmax
+    from repro_torch.kernels.logf import log_cuda
+    from repro_torch.kernels.montecarlo import mc_partial_sums_cuda as mc_cuda
     from repro_torch.models.attention import NEG_INF
 
     def expf(spec):
@@ -712,7 +799,10 @@ def _facade_cases(torch, gen):
 
     def logf(spec):
         x = log_input(torch, gen)
+        before = dict(log_cuda.path_launches)
         got, want = spec.run(x), spec.ref(x)
+        if log_cuda.path_launches["vector"] != before["vector"] + 1:
+            _fail("facade logf: not launched on the vector path")
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
         return float((got - want).abs().max())
 
@@ -751,8 +841,12 @@ def _facade_cases(torch, gen):
 
     def montecarlo(fn, truth):
         def run(spec):
-            for n_blocks in (8, 1024):
+            for n_blocks, path in ((8, "segment"), (1024, "lane")):
+                before = dict(mc_cuda.path_launches)
                 est = spec.run(42, MC_SAMPLES, n_blocks=n_blocks)
+                if mc_cuda.path_launches[path] != before[path] + 1:
+                    _fail(f"facade {spec.name} n_blocks={n_blocks}: not "
+                          f"launched on the {path} path")
                 want = fn(42, MC_SAMPLES, n_blocks=n_blocks, impl="reference")
                 if float(est) != float(want):
                     _fail(f"facade {spec.name} n_blocks={n_blocks}: "
@@ -762,8 +856,8 @@ def _facade_cases(torch, gen):
                           f"estimate {float(est)!r} is not within 0.002 "
                           f"of {truth}")
                 print(f"facade: {spec.name} n_blocks={n_blocks}: "
-                      f"{float(est)!r} (2**26 samples, equal to the plain "
-                      "version)")
+                      f"{float(est)!r} (2**26 samples, {path} path, equal to "
+                      "the plain version)")
             return 0.0
         return run
 
@@ -793,11 +887,13 @@ def check_facade(torch, gen) -> dict:
             errs[spec.name] = cases[spec.name](spec)
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}
-    print("facade:", json.dumps(dict(max_abs_err=errs, launches=launches)))
+    paths = _path_launches(counters)
+    print("facade:", json.dumps(dict(max_abs_err=errs, launches=launches,
+                                     path_launches=paths)))
     for k, n in launches.items():
         if n <= 0:
             _fail(f"facade: the {k} kernel was not launched")
-    return launches
+    return launches, paths
 
 
 def main() -> int:
@@ -821,20 +917,24 @@ def main() -> int:
     print(smi)
     card = Card(torch, _smi)
     print(card.describe())
+    from tools import logf_variants
+    variants_build = logf_variants.start_build()   # beside the kernels'
     t_build = _build.build_all()
     print(f"kernels built in {t_build:.1f} s into {_build.BUILD_DIR}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    entries = check_kernels(torch, gen, card)
+    entries = check_kernels(torch, gen, card, variants_build)
     check_reference(torch)
     serving, serving_paths = serve_full(torch)
-    facade = check_facade(torch, gen)
+    facade, facade_paths = check_facade(torch, gen)
     for e in entries:
         phase = "facade" if e["name"] in ("logf", "montecarlo") else "serving"
-        e["launches"] = (facade if phase == "facade" else serving)[e["name"]]
+        counts, paths = ((facade, facade_paths) if phase == "facade"
+                         else (serving, serving_paths))
+        e["launches"] = counts[e["name"]]
         e["launches_counted_in"] = f"the {phase} phase"
-        if e["name"] in serving_paths:
-            e["launches_by_path"] = serving_paths[e["name"]]
+        if e["name"] in paths:
+            e["launches_by_path"] = paths[e["name"]]
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,17 +10,11 @@
 //                ISSR, the TPU kernel's one-vreg jnp.take);
 //   FP phase 1   r = z*invc - 1, the degree-4 log1p Horner, + logc + k*ln2.
 // Lanes with x <= 0 are mapped to 1.0 first (ln 1 = 0), as
-// src/repro/kernels/ops.py:log does before the TPU kernel; NaN passes
-// through.  Denormals are not flushed (no -ftz), so a positive denormal gives
-// a finite value that is not its log: the kernel's domain is positive
-// normals, as the TPU kernel's is.
-//
-// The tables: each block copies both (32 floats, from the wrapper's device
-// copy of repro_torch/kernels/ref.py's tables) into shared memory once.  A
-// warp's 32 lanes then read at most 16 distinct words, which lie in 16
-// distinct banks, so the gather costs one shared-memory access without
-// conflicts.  In __constant__ memory the same reads would be serialised, one
-// per distinct address.
+// src/repro/kernels/ops.py:log does before the TPU kernel.  NaN and +inf do not
+// pass through: their bits go through the same phases and give a finite value
+// (about 89), as in the plain version and the TPU kernel.  Denormals are not
+// flushed (no -ftz), so a positive denormal gives a finite value that is not
+// its log: the kernel's domain is positive normals, as the TPU kernel's is.
 //
 // FMA contraction is left on (nvcc's default): r = z*invc - 1, the Horner
 // steps and k*ln2 may fuse.  The plain version rounds every product; the two
@@ -28,14 +22,38 @@
 //
 // Bound on the H100: device-memory bytes.  Each element is read once and
 // written once (8 bytes) for about 18 instructions, 6 of them on the integer
-// pipe.  Consecutive threads touch consecutive elements, so every
-// warp's loads and stores are coalesced, and the grid-stride loop covers any
-// n with no padding.
+// pipe.  As for exp (expf.cu), the card needs ~18 KB of loads in flight an
+// SM to reach 3.35 TB/s, and a scalar loop with one 4-byte load a thread
+// keeps 8 KB in flight.  So the vector kernel, which takes every input whose
+// x and y are 16-byte aligned:
+//   - loads float4s, kUnroll = 2 of them a thread before any compute (32
+//     bytes in flight a thread, 64 KB an SM);
+//   - gives each 256-thread block one chunk of 512 float4s (8 KB), so the
+//     grid is n / 2048 blocks and the block scheduler keeps every SM full to
+//     the end;
+//   - gives the last n % 4 elements (at most 3) to a scalar tail, which
+//     reads the tables from device memory.
+// The table gather is a policy of the vector kernel (Tables below).  With
+// one chunk a block, a copy of the tables into shared memory behind a
+// __syncthreads would happen once per 8 KB.  The vector kernel ships
+// ShuffleTables: lane l of each warp loads entry l & 15 of both tables into
+// registers once, and the gather is a __shfl_sync, with no barrier and no
+// memory access.  tools/logf_variants.py times it beside the shared-memory
+// copy (SharedTables) and __ldg from the device tables (LdgTables) on the
+// same input in one run (PERF.md has the times).
+//
+// An input that is not 16-byte aligned takes the scalar grid-stride kernel
+// (the port's first design), with the tables in shared memory: a warp's 32
+// lanes read at most 16 distinct words, in 16 distinct banks, so the gather
+// costs one shared-memory access without conflicts.  The wrapper
+// (repro_torch/kernels/logf.py:log_plan) chooses by alignment alone.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kUnroll = 2;
+constexpr int64_t kChunk = kThreads * kUnroll;  // float4s a block takes
 constexpr int kTable = 16;
 constexpr uint32_t kOff = 0x3f330000u;
 constexpr float kLn2 = 0x1.62e43p-1f;
@@ -43,8 +61,59 @@ constexpr float kC4 = -0x1p-2f;        // -1/4
 constexpr float kC3 = 0x1.555556p-2f;  // 1/3 in fp32
 constexpr float kC2 = -0x1p-1f;        // -1/2
 
-__device__ __forceinline__ float log_phases(float x, const float* invc_t,
-                                            const float* logc_t) {
+// The tables in shared memory: the block's first 16 threads copy them, and
+// every thread waits at one barrier.  Every thread of the block must
+// construct it.
+struct SharedTables {
+  const float* invc;
+  const float* logc;
+  __device__ SharedTables(const float* __restrict__ invc_g,
+                          const float* __restrict__ logc_g) {
+    __shared__ float invc_s[kTable];
+    __shared__ float logc_s[kTable];
+    if (threadIdx.x < kTable) {
+      invc_s[threadIdx.x] = invc_g[threadIdx.x];
+      logc_s[threadIdx.x] = logc_g[threadIdx.x];
+    }
+    __syncthreads();
+    invc = invc_s;
+    logc = logc_s;
+  }
+  __device__ __forceinline__ float2 operator()(int i) const {
+    return make_float2(invc[i], logc[i]);
+  }
+};
+
+// The tables read from device memory through the read-only cache: a warp's
+// gather touches at most 16 distinct words of one 64-byte line each.
+struct LdgTables {
+  const float* invc;
+  const float* logc;
+  __device__ LdgTables(const float* __restrict__ invc_g,
+                       const float* __restrict__ logc_g)
+      : invc(invc_g), logc(logc_g) {}
+  __device__ __forceinline__ float2 operator()(int i) const {
+    return make_float2(__ldg(invc + i), __ldg(logc + i));
+  }
+};
+
+// Lane l holds invc[l & 15] and logc[l & 15]; the gather reads lane i.
+// Every lane of the warp must reach each gather.
+struct ShuffleTables {
+  float invc;
+  float logc;
+  __device__ ShuffleTables(const float* __restrict__ invc_g,
+                           const float* __restrict__ logc_g)
+      : invc(__ldg(invc_g + (threadIdx.x & (kTable - 1)))),
+        logc(__ldg(logc_g + (threadIdx.x & (kTable - 1)))) {}
+  __device__ __forceinline__ float2 operator()(int i) const {
+    return make_float2(__shfl_sync(0xffffffffu, invc, i),
+                       __shfl_sync(0xffffffffu, logc, i));
+  }
+};
+
+template <typename Tables>
+__device__ __forceinline__ float log_phases(float x, const Tables& tables) {
   if (x <= 0.f) x = 1.f;
   // --- INT phase 0.  The subtractions are done in uint32 (no signed
   // overflow for any input); tmp is read back as int32, so k's shift is
@@ -56,39 +125,88 @@ __device__ __forceinline__ float log_phases(float x, const float* invc_t,
   const float z =
       __uint_as_float(ix - (static_cast<uint32_t>(tmp) & 0xff800000u));
   // --- gather.
-  const float invc = invc_t[i];
-  const float logc = logc_t[i];
+  const float2 c = tables(i);
   // --- FP phase 1.
-  const float r = z * invc - 1.f;
+  const float r = z * c.x - 1.f;
   float p = kC4;
   p = p * r + kC3;
   p = p * r + kC2;
   const float y = (p * r + 1.f) * r;
-  return (y + logc) + static_cast<float>(k) * kLn2;
+  return (y + c.y) + static_cast<float>(k) * kLn2;
+}
+
+template <typename Tables>
+__device__ __forceinline__ float4 log4(float4 v, const Tables& tables) {
+  v.x = log_phases(v.x, tables);
+  v.y = log_phases(v.y, tables);
+  v.z = log_phases(v.z, tables);
+  v.w = log_phases(v.w, tables);
+  return v;
+}
+
+// y[i] = log(x[i]) over the n4 float4s of x, then the n - 4 * n4 scalars
+// after them.  Every thread of a block reaches the Tables constructor and
+// every gather (lanes past the end compute on 1.0), so a policy may hold a
+// barrier or a warp shuffle.
+template <typename Tables>
+__global__ void __launch_bounds__(kThreads)
+    log_vec_kernel(const float* __restrict__ x, float* __restrict__ y,
+                   int64_t n4, int64_t n, const float* __restrict__ invc,
+                   const float* __restrict__ logc) {
+  const float4* __restrict__ x4 = reinterpret_cast<const float4*>(x);
+  float4* __restrict__ y4 = reinterpret_cast<float4*>(y);
+  const int64_t base = blockIdx.x * kChunk + threadIdx.x;
+  float4 v[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    v[u] = base + u * kThreads < n4 ? x4[base + u * kThreads]
+                                    : make_float4(1.f, 1.f, 1.f, 1.f);
+  }
+  const Tables tables(invc, logc);  // after the chunk's loads are issued
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) v[u] = log4(v[u], tables);
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    if (base + u * kThreads < n4) y4[base + u * kThreads] = v[u];
+  }
+  const int64_t t = 4 * n4 + static_cast<int64_t>(blockIdx.x) * kThreads +
+                    threadIdx.x;
+  if (t < n) y[t] = log_phases(x[t], LdgTables(invc, logc));
 }
 
 __global__ void log_kernel(const float* __restrict__ x, float* __restrict__ y,
                            int64_t n, const float* __restrict__ invc,
                            const float* __restrict__ logc) {
-  __shared__ float invc_s[kTable];
-  __shared__ float logc_s[kTable];
-  if (threadIdx.x < kTable) {
-    invc_s[threadIdx.x] = invc[threadIdx.x];
-    logc_s[threadIdx.x] = logc[threadIdx.x];
-  }
-  __syncthreads();
+  const SharedTables tables(invc, logc);
   const int64_t stride = static_cast<int64_t>(blockDim.x) * gridDim.x;
   for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        j < n; j += stride) {
-    y[j] = log_phases(x[j], invc_s, logc_s);
+    y[j] = log_phases(x[j], tables);
   }
+}
+
+// The vector kernel's launch with the Tables policy given; the checks of
+// copift_log_vec_f32.
+template <typename Tables>
+int launch_vec(const float* x, float* y, int64_t n4, int64_t n,
+               const float* invc, const float* logc, cudaStream_t stream) {
+  const int64_t grid = n4 > 0 ? (n4 + kChunk - 1) / kChunk : 1;
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16 ||
+      n4 < 0 || n - 4 * n4 < 0 || n - 4 * n4 > 3 || grid > 2147483647) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n > 0) {
+    log_vec_kernel<Tables><<<static_cast<unsigned int>(grid), kThreads, 0,
+                             stream>>>(x, y, n4, n, invc, logc);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// y[j] = log(x[j]) for j < n, on the given stream; invc and logc are the two
-// 16-entry fp32 tables on the device.  Returns the launch's cudaError_t as an
-// int (0 on success).
+// y[j] = log(x[j]) for j < n, on the given stream: the scalar kernel, for
+// any alignment; invc and logc are the two 16-entry fp32 tables on the
+// device.  Returns the launch's cudaError_t as an int (0 on success).
 extern "C" int copift_log_f32(const float* x, float* y, int64_t n,
                               const float* invc, const float* logc,
                               cudaStream_t stream) {
@@ -97,4 +215,13 @@ extern "C" int copift_log_f32(const float* x, float* y, int64_t n,
         x, y, n, invc, logc);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same with the vector kernel: x and y 16-byte aligned, n4 = n / 4
+// float4s, then the scalar tail.  Refuses other arguments, and a grid
+// beyond 2^31 - 1 blocks (n beyond 2^42), with cudaErrorInvalidValue.
+extern "C" int copift_log_vec_f32(const float* x, float* y, int64_t n4,
+                                  int64_t n, const float* invc,
+                                  const float* logc, cudaStream_t stream) {
+  return launch_vec<ShuffleTables>(x, y, n4, n, invc, logc, stream);
 }

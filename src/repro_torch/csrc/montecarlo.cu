@@ -8,9 +8,7 @@
 //   xoshiro128+  word k = splitmix32(g + seed + k*0x9e3779b9), k = 0..3;
 // every add wrapping mod 2^32.  Step i draws x then u (two generator steps),
 // tests x*x + u*u < 1 (pi) or u < f(x) (poly, Horner in fp32) and adds the
-// hit to accumulator i % 3; the lane writes (a0 + a1) + a2.  The three fp32
-// accumulators saturate past 2^24 hits exactly as the TPU kernel's do, so no
-// integer counter stands in for them.
+// hit to accumulator i % 3; the lane writes (a0 + a1) + a2.
 //
 // Bit-exactness: nvcc contracts a*b + c into one fused multiply-add by
 // default, and one rounding fewer can flip a rare hit.  The hit tests
@@ -19,36 +17,75 @@
 // plain PyTorch version round them.  The rest of the file is exact (integer
 // work, an exact conversion and power-of-two scale, adds of 0 or 1).
 //
-// Geometry: the TPU kernel's grid step of 1024 lanes is not carried over.
-// Lanes are independent, so one thread runs one lane, in blocks of 128
-// threads: the 8192 lanes of the default n_blocks = 8 spread over 64 SMs, one
-// warp on each of their four schedulers.
-//
 // Bound on the H100: instruction dispatch; the bytes (4 written per lane)
 // do not count.  nvcc turns xoshiro128+'s five xors into three-input LOP3s
 // and moves its shift and add onto the multiply-add pipe (IMAD), so a pi
 // sample takes about 26 instructions, 13 of them on the integer pipe: the
 // dispatch slots (128 lanes per SM) and the INT32 lanes (64) run out
-// together.  At n_blocks = 8 only one warp runs on each scheduler, and each
-// lane's samples are sequential, so the kernel is bound there by one lane's
-// instructions at one per clock and by its generator's dependency chain.
+// together.
+//
+// Two paths, chosen by shape in the wrapper
+// (repro_torch/kernels/montecarlo.py:mc_plan), which passes each launcher
+// its parameters:
+//
+// (a) A lane per thread (mc_kernel), in blocks of 128 threads, from
+//     132 x 128 lanes on, where every scheduler of every SM holds a warp.
+//     The three fp32 accumulators saturate past 2^24 hits exactly as the
+//     TPU kernel's do.  Below that some SMs idle: at the facade's default
+//     n_blocks = 8 this path has 8192 threads, one warp on each scheduler
+//     of 64 SMs, and each lane's samples are sequential.
+//
+// (b) A lane's samples split over S segments (mc_segment_kernel), S a power
+//     of two up to 32, for fewer lanes: the smallest S with about 2^16
+//     threads, four warps a scheduler.  Segment s takes samples
+//     [s*L, min((s+1)*L, iters)), L = ceil(iters / S); it starts from the
+//     lane's state advanced 2*s*L generator steps (two draws a sample) by a
+//     jump table built on the host: for the LCG the pair (A, C) of
+//     state <- A*state + C mod 2^32, for xoshiro128+ the 128x128 GF(2)
+//     matrix of the state transition raised to that power (the new state
+//     is the xor of the matrix's columns at the old state's set bits).  The
+//     matrix comes as 32 tables of 16 entries, one for each 4-bit nibble of
+//     the state, each entry the xor of the 4 columns its bits select (8 KB
+//     a segment): a jump is 32 table loads and 128 xors, where the 128
+//     columns cost 128 loads, 512 xors and 128 bit tests, and the xors hold
+//     the integer pipe, which the generator needs too.  A block is 32 lanes
+//     x S segments: warp s runs segment s of all 32 lanes, so its table
+//     loads fall in one 256-byte table at a time.  Each segment counts its
+//     hits in three counters by the global sample index mod 3 (fp32, exact
+//     below 2^24); the block adds the S counts of a lane in shared memory
+//     in a fixed order, and the lane writes (a0 + a1) + a2 with
+//     a_j = min(count_j, 2^24) as fp32.  That equals the lane path bit for
+//     bit: every increment of an fp32 accumulator is 0 or 1, so after the
+//     loop it holds exactly min(count, 2^24) (at 2^24, adding 1 rounds back
+//     to 2^24, ties to even), and integer counts do not depend on the order
+//     of the samples.
 #include "common.cuh"
 #include "prng.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kMaxSegments = 32;
 
 struct Lcg {
+  // A jump: (A, C), state <- A*state + C mod 2^32.
+  static constexpr int kJumpWords = 2;
   uint32_t s;
   __device__ explicit Lcg(uint32_t base) : s(copift::splitmix32(base)) {}
   __device__ __forceinline__ uint32_t next() {
     s = s * copift::kLcgA + copift::kLcgC;
     return (s >> 9) ^ s;
   }
+  __device__ __forceinline__ void jump(const uint32_t* __restrict__ t) {
+    s = __ldg(t) * s + __ldg(t + 1);
+  }
 };
 
 struct Xoshiro128p {
+  // A jump: the transition matrix's power M as 32 tables of 16 entries of
+  // 4 words, entry v of table p the xor of M's columns 4p .. 4p + 3 that v's
+  // bits select (column 32*w + b is the image of bit b of word w).
+  static constexpr int kJumpWords = 32 * 16 * 4;
   uint32_t s0, s1, s2, s3;
   __device__ explicit Xoshiro128p(uint32_t base)
       : s0(copift::splitmix32(base)),
@@ -65,6 +102,29 @@ struct Xoshiro128p {
     s2 ^= t;
     s3 = (s3 << 11) | (s3 >> 21);
     return out;
+  }
+  // The new state is the xor of M's columns at the old state's set bits:
+  // one table entry for each of its 32 nibbles.
+  __device__ __forceinline__ void jump(const uint32_t* __restrict__ t) {
+    const uint4* __restrict__ tables = reinterpret_cast<const uint4*>(t);
+    const uint32_t w[4] = {s0, s1, s2, s3};
+    uint32_t r0 = 0, r1 = 0, r2 = 0, r3 = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const uint4 c =
+            __ldg(tables + 16 * (8 * k + q) + ((w[k] >> (4 * q)) & 15u));
+        r0 ^= c.x;
+        r1 ^= c.y;
+        r2 ^= c.z;
+        r3 ^= c.w;
+      }
+    }
+    s0 = r0;
+    s1 = r1;
+    s2 = r2;
+    s3 = r3;
   }
 };
 
@@ -105,6 +165,63 @@ __global__ void mc_kernel(float* __restrict__ out, int64_t n_lanes,
   out[g] = (a0 + a1) + a2;
 }
 
+// Block b holds lanes 32b .. 32b + 31 and S = blockDim.x / 32 segments of
+// each; jump holds S entries of Gen::kJumpWords words, entry s the jump of
+// 2*s*seg_len steps.  counts (dynamic shared memory) is [3][S][32].
+template <bool kPi, typename Gen>
+__global__ void __launch_bounds__(32 * kMaxSegments)
+    mc_segment_kernel(float* __restrict__ out, uint32_t seed, int64_t iters,
+                      int64_t seg_len, const uint32_t* __restrict__ jump) {
+  extern __shared__ uint32_t counts[];
+  const int lane = threadIdx.x & 31;
+  const int s = threadIdx.x >> 5;
+  const int segments = blockDim.x >> 5;
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * 32 + lane;
+  Gen gen(static_cast<uint32_t>(g) + seed);
+  gen.jump(jump + s * Gen::kJumpWords);
+  const int64_t lo = s * seg_len < iters ? s * seg_len : iters;
+  const int64_t hi = lo + seg_len < iters ? lo + seg_len : iters;
+  const uint32_t len = static_cast<uint32_t>(hi - lo);
+  // A segment's counts stay below 2^24 (seg_len <= 2^24), so fp32 holds
+  // them exactly; the adds run on the FMA pipe, as the lane kernel's do,
+  // and leave the integer pipe to the generator.
+  float f0 = 0.f, f1 = 0.f, f2 = 0.f;
+  uint32_t t = 0;
+  for (; t + 3 <= len; t += 3) {
+    f0 += sample<kPi>(gen);
+    f1 += sample<kPi>(gen);
+    f2 += sample<kPi>(gen);
+  }
+  if (t < len) f0 += sample<kPi>(gen);
+  if (t + 1 < len) f1 += sample<kPi>(gen);
+  const uint32_t q0 = static_cast<uint32_t>(f0);
+  const uint32_t q1 = static_cast<uint32_t>(f1);
+  const uint32_t q2 = static_cast<uint32_t>(f2);
+  // Local sample t is global sample lo + t: rotate the counts so that c_j
+  // counts the samples i = j mod 3.
+  const int r = static_cast<int>(lo % 3);
+  const uint32_t c0 = r == 0 ? q0 : r == 1 ? q2 : q1;
+  const uint32_t c1 = r == 0 ? q1 : r == 1 ? q0 : q2;
+  const uint32_t c2 = r == 0 ? q2 : r == 1 ? q1 : q0;
+  counts[(0 * segments + s) * 32 + lane] = c0;
+  counts[(1 * segments + s) * 32 + lane] = c1;
+  counts[(2 * segments + s) * 32 + lane] = c2;
+  __syncthreads();
+  if (s == 0) {
+    uint64_t n0 = 0, n1 = 0, n2 = 0;
+    for (int k = 0; k < segments; ++k) {
+      n0 += counts[(0 * segments + k) * 32 + lane];
+      n1 += counts[(1 * segments + k) * 32 + lane];
+      n2 += counts[(2 * segments + k) * 32 + lane];
+    }
+    constexpr uint64_t kSat = 1u << 24;  // where an fp32 count stops at
+    const float a0 = static_cast<float>(n0 < kSat ? n0 : kSat);
+    const float a1 = static_cast<float>(n1 < kSat ? n1 : kSat);
+    const float a2 = static_cast<float>(n2 < kSat ? n2 : kSat);
+    out[g] = (a0 + a1) + a2;
+  }
+}
+
 template <bool kPi, typename Gen>
 void launch(float* out, int64_t n_lanes, uint32_t seed, int64_t iters,
             cudaStream_t stream) {
@@ -112,6 +229,16 @@ void launch(float* out, int64_t n_lanes, uint32_t seed, int64_t iters,
       static_cast<unsigned int>((n_lanes + kThreads - 1) / kThreads);
   mc_kernel<kPi, Gen><<<blocks, kThreads, 0, stream>>>(out, n_lanes, seed,
                                                        iters);
+}
+
+template <bool kPi, typename Gen>
+void launch_segments(float* out, int64_t n_lanes, uint32_t seed,
+                     int64_t iters, int segments, int64_t seg_len,
+                     const uint32_t* jump, cudaStream_t stream) {
+  const unsigned int blocks = static_cast<unsigned int>(n_lanes / 32);
+  const size_t smem = 3 * sizeof(uint32_t) * 32 * segments;
+  mc_segment_kernel<kPi, Gen><<<blocks, 32 * segments, smem, stream>>>(
+      out, seed, iters, seg_len, jump);
 }
 
 }  // namespace
@@ -133,6 +260,40 @@ extern "C" int copift_mc_f32(float* out, int64_t n_lanes, uint32_t seed,
     } else {
       launch<false, Xoshiro128p>(out, n_lanes, seed, iters, stream);
     }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same with the segment path: S = segments in {1, 2, 4, 8, 16, 32},
+// seg_len = ceil(iters / S) at most 2^24, jump the S entries of the table
+// (2 words an entry for the LCG, 512 for xoshiro128+, 16-byte aligned).
+// n_lanes must be a positive multiple of 32, at most 2^32.  Refuses other
+// arguments with cudaErrorInvalidValue.
+extern "C" int copift_mc_seg_f32(float* out, int64_t n_lanes, uint32_t seed,
+                                 int kind, int problem, int64_t iters,
+                                 int segments, int64_t seg_len,
+                                 const uint32_t* jump, cudaStream_t stream) {
+  const bool pow2 = segments > 0 && (segments & (segments - 1)) == 0;
+  if (n_lanes <= 0 || n_lanes % 32 || n_lanes > (int64_t{1} << 32) ||
+      (kind != 0 && kind != 1) || (problem != 0 && problem != 1) ||
+      !pow2 || segments > kMaxSegments || iters < 0 ||
+      seg_len != (iters + segments - 1) / segments ||
+      seg_len > (int64_t{1} << 24) || jump == nullptr ||
+      reinterpret_cast<uintptr_t>(jump) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (kind == 0 && problem == 0) {
+    launch_segments<true, Lcg>(out, n_lanes, seed, iters, segments, seg_len,
+                               jump, stream);
+  } else if (kind == 0) {
+    launch_segments<false, Lcg>(out, n_lanes, seed, iters, segments, seg_len,
+                                jump, stream);
+  } else if (problem == 0) {
+    launch_segments<true, Xoshiro128p>(out, n_lanes, seed, iters, segments,
+                                       seg_len, jump, stream);
+  } else {
+    launch_segments<false, Xoshiro128p>(out, n_lanes, seed, iters, segments,
+                                        seg_len, jump, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }

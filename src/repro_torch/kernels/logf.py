@@ -7,9 +7,13 @@ tables gathered at an integer-computed index.  It maps lanes with
 ``x <= 0`` to 1.0 before the INT phase, as the JAX package's ``ops.log``
 does before its Pallas kernel; ``log_plain`` does the same, so the two agree
 on every input.  ``ref.log_ref`` has no such map (nor has the JAX oracle).
+``log_plan`` picks the kernel's vector or scalar path by alignment;
+``log_cuda.path_launches`` counts the launches of each.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -24,21 +28,50 @@ def log_plain(x: torch.Tensor) -> torch.Tensor:
     return log_ref(torch.where(x <= 0, 1.0, x))
 
 
-_ARGS = (_build.PTR, _build.PTR, _build.I64, _build.PTR, _build.PTR,
-         _build.PTR)
+class LogPlan(NamedTuple):
+    """The kernel of ``csrc/logf.cu`` an input takes: ``"vector"`` over
+    ``n_vec4`` float4s and a scalar tail of ``n_tail`` elements, or
+    ``"scalar"`` over all of them."""
+    path: str
+    n_vec4: int
+    n_tail: int
+
+
+def log_plan(n: int, x_ptr: int, y_ptr: int) -> LogPlan:
+    """The vector kernel when both pointers are 16-byte aligned, else the
+    scalar one: chosen by alignment alone."""
+    if x_ptr % 16 or y_ptr % 16:
+        return LogPlan("scalar", 0, n)
+    return LogPlan("vector", n // 4, n % 4)
+
+
+_ARGS = {"scalar": (_build.PTR, _build.PTR, _build.I64, _build.PTR,
+                    _build.PTR, _build.PTR),
+         "vector": (_build.PTR, _build.PTR, _build.I64, _build.I64,
+                    _build.PTR, _build.PTR, _build.PTR)}
 
 
 def log_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/logf.cu`` on a contiguous fp32 CUDA tensor."""
+    """Launch ``csrc/logf.cu`` on a contiguous fp32 CUDA tensor, with the
+    kernel ``log_plan`` gives its alignment."""
     _build.check_cuda_tensor(x, (torch.float32,), "log_cuda")
     y = torch.empty_like(x)
-    if x.numel():
+    n = x.numel()
+    if n:
         invc, logc = logf_tables(x.device)
-        _build.launch("logf", "copift_log_f32", _ARGS, x.data_ptr(),
-                      y.data_ptr(), x.numel(), invc.data_ptr(),
-                      logc.data_ptr(), _build.stream(x))
+        plan = log_plan(n, x.data_ptr(), y.data_ptr())
+        if plan.path == "vector":
+            _build.launch("logf", "copift_log_vec_f32", _ARGS["vector"],
+                          x.data_ptr(), y.data_ptr(), plan.n_vec4, n,
+                          invc.data_ptr(), logc.data_ptr(), _build.stream(x))
+        else:
+            _build.launch("logf", "copift_log_f32", _ARGS["scalar"],
+                          x.data_ptr(), y.data_ptr(), n, invc.data_ptr(),
+                          logc.data_ptr(), _build.stream(x))
         log_cuda.launches += 1
+        log_cuda.path_launches[plan.path] += 1
     return y
 
 
 log_cuda.launches = 0
+log_cuda.path_launches = {"vector": 0, "scalar": 0}
