@@ -11,10 +11,12 @@ and prints no result line):
    the build of every CUDA kernel from ``src/repro_torch/csrc`` (nvcc into
    ``build/``).
 2. Every kernel held against its plain PyTorch version on the card, at the
-   shapes the serving path or the facade gives it, and at the edges of each
-   kernel's paths; each case records the path it took.  softmax at the edges of
-   its three paths (warp per row, a thread block cluster per row, three sweeps),
-   twice, bit-identical; exp and logf at 16 M, a ragged tail, a misaligned view
+   shapes the serving path, the training path or the facade gives it, and at
+   the edges of each kernel's paths; each case records the path it took.
+   softmax at the edges of its three paths (warp per row, a thread block
+   cluster per row, three sweeps) and at training's 131,072 x 2,048 scores,
+   twice, bit-identical; uniform also at the token pipeline's 8,196; exp
+   and logf at 16 M, a ragged tail, a misaligned view
    (their scalar kernels), exp also at the attention correction's 16 K values,
    logf also against fp64 on a 4097-point grid and outside its domain, through
    both kernels; Monte Carlo bit-exact for {pi, poly} x {lcg, xoshiro128p} and
@@ -56,14 +58,46 @@ and prints no result line):
    segment path at n_blocks 8 and its lane path at 1024.  The logf and
    Monte-Carlo launch counts (and counts by path) in the JSON line are this
    phase's, the others the serving phase's.
-6. The last line: ``{"ok": true, "device": {...}}``.
+6. Training (``train_phase``), which prints its own wall time:
+   (d) ``repro_torch.launch.train.main`` trains OLMo-1B at full width
+       (bf16 compute, fp32 masters, ``remat="full"``), batch 4 × seq 2048,
+       4 steps with a checkpoint every 2, then again with ``--steps 6``:
+       the second run must print ``[resume] from step 4`` and record steps
+       4 and 5 only.  Every loss and grad norm must be finite; uniform must
+       launch in the token pipeline and softmax on its cluster path only.
+   (e) one train step at batch 1 × seq 4096, the chunked attention path:
+       exp must launch on its vector path; loss and grad norm finite.
+   (f) one step of one full-width state and batch with the kernels
+       (``softmax_impl="cuda"``) against one with the plain versions
+       (``"reference"``): loss to rtol 1e-4, grad norm to rtol 1e-3; then
+       one more step with the kernels under torch.profiler (its device-busy
+       share and the kernels that take the most device time).  The
+       softmax and exp ``autograd.Function``s' input gradients at the
+       training shapes (softmax 131,072 × 2,048 fp32, causal mask; exp 16 M)
+       against autograd through their plain versions, in row slices, to
+       rtol 1e-5 / atol 1e-6.
+   (g) the olmo-1b smoke model trains 3 steps on the card and on the CPU
+       from the same state; the batches must be identical and the losses
+       agree to rtol 1e-4.
+   Launch counters are set to 0 just before each main-path run and read
+   just after; they include the remat recompute, which launches each
+   period's softmax (or exp) a second time.  Printed, not gated: ms per
+   step (host clock ending in ``torch.cuda.synchronize``, median of the
+   steps after the first), tokens/s, peak ``torch.cuda.max_memory_allocated``
+   and launches per step of each kernel and path.
+7. The last line: ``{"ok": true, "device": {...}}``.
 
-fp32 matmuls and convolutions are pinned to full fp32 (TF32 off).
+Phase 2 also times an empty kernel at the uniform kernel's grids
+(``tools/launch_floor.py``, built beside the kernels): the card's floor
+for one launch.  fp32 matmuls and convolutions are pinned to full fp32
+(TF32 off).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
 import math
 import re
@@ -267,7 +301,8 @@ def _bf16_ulp_err(got, want) -> float:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_kernels(torch, gen, card, variants_build) -> list[dict]:
+def check_kernels(torch, gen, card, variants_build,
+                  floor_build) -> list[dict]:
     from repro_torch.kernels import expf, prng, softmax
     from repro_torch.models.attention import NEG_INF
 
@@ -290,7 +325,8 @@ def check_kernels(torch, gen, card, variants_build) -> list[dict]:
             (16, 5121, bf16, "cluster path, 4-byte loads, bf16"),
             (2, softmax.CLUSTER_MAX_COLS, f32,
              "widest row of the cluster path"),
-            (2, 1 << 20, f32, "beyond the cluster path")]:
+            (2, 1 << 20, f32, "beyond the cluster path"),
+            (4 * 16 * 2048, 2048, f32, "training scores (d), cluster k 1")]:
         x = torch.randn(rows, cols, device="cuda", generator=gen) * 4
         x[:, cols // 2 + 1:] = NEG_INF
         x[0] = NEG_INF
@@ -376,7 +412,8 @@ def check_kernels(torch, gen, card, variants_build) -> list[dict]:
     # --- uniform: bit-exact for both generators and the seed extremes.
     cases = []
     for n, what in [(50304, "one sampling draw, V = 50304"),
-                    (1 << 24, "16 M values")]:
+                    (1 << 24, "16 M values"),
+                    (4 * 2049, "one token-pipeline draw, batch 4 x 2049")]:
         for kind in ("xoshiro128p", "lcg"):
             for seed in (0, 2 ** 31 + 5, 2 ** 32 - 1):
                 got = prng.uniform_cuda(seed, n, kind)
@@ -392,8 +429,12 @@ def check_kernels(torch, gen, card, variants_build) -> list[dict]:
                 **_times(lambda: prng.uniform_cuda(seed, n, kind),
                          lambda: prng.uniform_plain(seed, n, kind, "cuda"),
                          None)))
-    entries.append(_entry("uniform", "src/repro_torch/csrc/prng.cu",
-                          "src/repro/kernels/prng.py:46", cases, 0))
+    entry = _entry("uniform", "src/repro_torch/csrc/prng.cu",
+                   "src/repro/kernels/prng.py:46", cases, 0)
+    from tools import launch_floor
+    entry["launch_floor"] = launch_floor.measure(floor_build)
+    print("launch floor:", json.dumps(entry["launch_floor"]))
+    entries.append(entry)
     entries.append(check_log(torch, gen, card, variants_build))
     entries.append(check_montecarlo(torch, card))
     return entries
@@ -673,21 +714,22 @@ def _request(label, fn, vocab):
     return res, row
 
 
-def profile_serving(torch, engine, prompts, n_steps: int) -> None:
-    """Where the time of a request of (a)'s shape goes: one generate()
-    under torch.profiler, its device activity read from the exported
-    trace.  Prints the device-busy share of the request's wall time and
-    the kernels that take the most device time.  A measurement only: it
-    checks nothing, and the profiler's own cost inflates the wall time."""
+def _profiled(torch, fn, label: str) -> dict:
+    """Run ``fn`` once under torch.profiler and read its device activity
+    from the exported trace (``build/chip_smoke_trace_<label>.json``):
+    (result, host-clock ms under the profiler ending in a synchronisation,
+    device-busy ms, device operations, device ms by kernel name)."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
 
-    engine.generate(prompts, 2)                      # warm-up
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        res = engine.generate(prompts, n_steps)
-    trace = ROOT / "build" / "chip_smoke_trace.json"
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    trace = ROOT / "build" / f"chip_smoke_trace_{label}.json"
     trace.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text())["traceEvents"]
@@ -696,14 +738,25 @@ def profile_serving(torch, engine, prompts, n_steps: int) -> None:
     by_name = Counter()
     for e in dev:
         by_name[e["name"][:80]] += e["dur"] / 1e3
-    busy_ms = sum(by_name.values())
+    return res, wall_ms, sum(by_name.values()), len(dev), by_name
+
+
+def profile_serving(torch, engine, prompts, n_steps: int) -> None:
+    """Where the time of a request of (a)'s shape goes: one generate()
+    under torch.profiler.  Prints the device-busy share of the request's
+    wall time and the kernels that take the most device time.  A
+    measurement only: it checks nothing, and the profiler's own cost
+    inflates the wall time."""
+    engine.generate(prompts, 2)                      # warm-up
+    res, _, busy_ms, n_ops, by_name = _profiled(
+        torch, lambda: engine.generate(prompts, n_steps), "serve")
     wall_ms = (res.prefill_s + res.decode_s) * 1e3
     print("profile:", json.dumps(dict(
         request=f"batch 4, prompt 128, {n_steps} new tokens, greedy",
         wall_ms_under_profiler=wall_ms,
-        device_busy_ms=busy_ms if dev else "not measured",
-        device_busy_share=busy_ms / wall_ms if dev else "not measured",
-        device_ops=len(dev),
+        device_busy_ms=busy_ms if n_ops else "not measured",
+        device_busy_share=busy_ms / wall_ms if n_ops else "not measured",
+        device_ops=n_ops,
         top=[[k, v] for k, v in by_name.most_common(8)])))
 
 
@@ -896,6 +949,287 @@ def check_facade(torch, gen) -> dict:
     return launches, paths
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training
+# ---------------------------------------------------------------------------
+
+class _Tee(io.TextIOBase):
+    """Writes to every stream it holds: the console and a capture."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for s in self.streams:
+            s.write(text)
+        return len(text)
+
+    def flush(self):
+        for s in self.streams:
+            s.flush()
+
+
+def _train_main(argv):
+    """``repro_torch.launch.train.main(argv)``: (history, printed text)."""
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(_Tee(buf, sys.stdout)):
+        history = train.main(argv)
+    return history, buf.getvalue()
+
+
+def _check_finite(label, rows):
+    for r in rows:
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
+            _fail(f"{label}: step {r['step']}: loss {r['loss']!r}, grad "
+                  f"norm {r['grad_norm']!r}")
+
+
+def _main_path_run(torch, fn):
+    """Run ``fn`` with every launch counter at 0; return (result,
+    launches, launches by path, seconds)."""
+    counters = _reset_counters()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (res, {k: c.launches for k, c in counters.items()},
+            _path_launches(counters), wall)
+
+
+def _full_state(torch, cfg, seed=0):
+    """A fresh full-width train state: fp32 masters from a seeded
+    generator on the card, the bf16 working copy, zero moments."""
+    from repro_torch.models.model import init_params
+    from repro_torch.train.train_step import init_train_state
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    masters = init_params(cfg.replace(dtype=cfg.param_dtype), gen, "cuda")
+    return init_train_state(cfg, masters)
+
+
+def train_full(torch, smi) -> dict:
+    """(d): launch.train at full width, 4 steps, then resumed to 6.
+    Returns the launches of each kernel over both runs."""
+    d = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(d, ignore_errors=True)
+    ckpt_dir, metrics = d / "ckpt", d / "metrics.json"
+    argv = ["--arch", "olmo-1b", "--variant", "full", "--batch", "4",
+            "--seq", "2048", "--ckpt-dir", str(ckpt_dir), "--ckpt-every", "2",
+            "--metrics-out", str(metrics), "--log-every", "1",
+            "--device", "cuda"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (hist, out), launches, paths, wall = _main_path_run(
+        torch, lambda: _train_main(argv + ["--steps", "4"]))
+    peak = torch.cuda.max_memory_allocated()
+    if [r["step"] for r in hist] != [0, 1, 2, 3]:
+        _fail(f"(d): steps {[r['step'] for r in hist]}")
+    if [r["step"] for r in json.loads(metrics.read_text())] != [0, 1, 2, 3]:
+        _fail("(d): --metrics-out does not hold steps 0 to 3")
+    _check_finite("(d)", hist)
+    (hist2, out2), launches2, _, wall2 = _main_path_run(
+        torch, lambda: _train_main(argv + ["--steps", "6"]))
+    if "[resume] from step 4" not in out2:
+        _fail("(d): the second run did not print '[resume] from step 4'")
+    if [r["step"] for r in hist2] != [4, 5]:
+        _fail(f"(d): the resumed run recorded steps "
+              f"{[r['step'] for r in hist2]}, not 4 and 5")
+    _check_finite("(d) resumed", hist2)
+    ckpts = sorted(p.name for p in ckpt_dir.iterdir())
+    if ckpts != [f"step_{s:08d}.pt" for s in (2, 4, 6)]:
+        _fail(f"(d): checkpoints {ckpts}")
+    steps = 4
+    if launches["uniform"] != 2 * steps:
+        _fail(f"(d): uniform launched {launches['uniform']} times in "
+              f"{steps} steps, not 2 a step")
+    sm = paths["softmax"]
+    if sm["cluster"] <= 0 or sm["warp"] or sm["sweep"]:
+        _fail(f"(d): softmax paths {sm}, expected the cluster path only")
+    secs = [r["seconds"] for r in hist]
+    ms = statistics.median(secs[1:]) * 1e3
+    row = dict(
+        phase="d: OLMo-1B full width, batch 4 x seq 2048, bf16 compute, "
+              "fp32 masters, remat full",
+        card=smi, steps=steps, ms_per_step=ms,
+        ms_per_step_all=[t * 1e3 for t in secs],
+        resumed_ms_per_step=[r["seconds"] * 1e3 for r in hist2],
+        tokens_per_s=4 * 2048 / (ms / 1e3),
+        peak_memory_gb=peak / 1e9,
+        losses=[r["loss"] for r in hist + hist2],
+        grad_norms=[r["grad_norm"] for r in hist + hist2],
+        launches_per_step={k: v / steps for k, v in launches.items()},
+        path_launches_per_step={k: {p: v / steps for p, v in by.items()}
+                                for k, by in paths.items()},
+        wall_s_run1=wall, wall_s_run2=wall2,
+        checkpoint_bytes=(ckpt_dir / ckpts[-1]).stat().st_size)
+    print("train:", json.dumps(row))
+    shutil.rmtree(d, ignore_errors=True)
+    return {k: launches[k] + launches2[k] for k in launches}
+
+
+def train_chunked(torch, smi) -> dict:
+    """(e): one step at batch 1 x seq 4096, chunked attention.  Returns the
+    launches of each kernel."""
+    from repro_torch.configs import load_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = load_config("olmo-1b", "full")
+    state = _full_state(torch, cfg)
+    batch = TokenPipeline(cfg, ShapeConfig("e", 4096, 1, "train"),
+                          device="cuda").host_batch_at(0)
+    fn = make_train_step(cfg, AdamWConfig(warmup_steps=1, total_steps=1))
+    torch.cuda.reset_peak_memory_stats()
+    (_, m), launches, paths, wall = _main_path_run(
+        torch, lambda: fn(state, batch))
+    m = {k: float(v) for k, v in m.items()}
+    _check_finite("(e)", [dict(m, step=0)])
+    ex = paths["exp"]
+    if ex["vector"] <= 0 or ex["scalar"]:
+        _fail(f"(e): exp paths {ex}, expected the vector path only")
+    print("train:", json.dumps(dict(
+        phase="e: batch 1 x seq 4096, chunked attention", card=smi,
+        ms_step_with_first_launches=wall * 1e3, loss=m["loss"],
+        grad_norm=m["grad_norm"],
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches_per_step=launches, path_launches_per_step=paths)))
+    return launches
+
+
+def train_against_plain(torch, smi) -> None:
+    """(f): one step with the kernels against one with the plain versions,
+    and the Functions' gradients at the training shapes."""
+    from repro_torch import api
+    from repro_torch.configs import load_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import expf, softmax
+    from repro_torch.models.attention import NEG_INF
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = load_config("olmo-1b", "full")
+    state = _full_state(torch, cfg, seed=1)
+    snapshot = {k: v.clone() for k, v in state.state_dict().items()}
+    batch = TokenPipeline(cfg, ShapeConfig("f", 2048, 4, "train"),
+                          device="cuda").host_batch_at(0)
+    opt = AdamWConfig(warmup_steps=1, total_steps=1)
+    got = {}
+    for impl in ("cuda", "reference"):
+        state.load_state_dict(snapshot)
+        fn = make_train_step(cfg.replace(softmax_impl=impl), opt)
+        with api.config(impl=impl):
+            _, m = fn(state, batch)
+        got[impl] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    # Where a step's time goes: one more step with the kernels, profiled.
+    fn = make_train_step(cfg, opt)
+    _, wall_ms, busy_ms, n_ops, by_name = _profiled(
+        torch, lambda: fn(state, batch), "train")
+    print("profile:", json.dumps(dict(
+        step="OLMo-1B full width, batch 4 x seq 2048, remat full",
+        card=smi, wall_ms_under_profiler=wall_ms,
+        device_busy_ms=busy_ms if n_ops else "not measured",
+        device_busy_share=busy_ms / wall_ms if n_ops else "not measured",
+        device_ops=n_ops,
+        top=[[k, v] for k, v in by_name.most_common(12)])))
+    del state, snapshot
+    a, b = got["cuda"], got["reference"]
+    if not math.isclose(a["loss"], b["loss"], rel_tol=1e-4):
+        _fail(f"(f): loss {a['loss']!r} (kernels) vs {b['loss']!r} (plain)")
+    if not math.isclose(a["grad_norm"], b["grad_norm"], rel_tol=1e-3):
+        _fail(f"(f): grad norm {a['grad_norm']!r} (kernels) vs "
+              f"{b['grad_norm']!r} (plain)")
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    T, rows = 2048, 4 * 16 * 2048
+    x = torch.randn(rows, T, device="cuda", generator=gen) * 4
+    t = torch.arange(rows, device="cuda")[:, None] % T
+    x = torch.where(torch.arange(T, device="cuda")[None, :] <= t, x, NEG_INF)
+    g = torch.randn(rows, T, device="cuda", generator=gen)
+    xg = x.clone().requires_grad_(True)
+    plan = softmax.softmax_plan(rows, T, torch.float32)
+    (dx,) = torch.autograd.grad(softmax.SoftmaxFn.apply(xg, True), xg, g)
+    err_sm = 0.0
+    for lo in range(0, rows, 16384):
+        xs = x[lo:lo + 16384].clone().requires_grad_(True)
+        (want,) = torch.autograd.grad(softmax.softmax_plain(xs), xs,
+                                      g[lo:lo + 16384])
+        torch.testing.assert_close(dx[lo:lo + 16384], want, rtol=1e-5,
+                                   atol=1e-6)
+        err_sm = max(err_sm, float((dx[lo:lo + 16384] - want).abs().max()))
+    del x, xg, g, dx, want, xs
+    n = 16 * 1024 * 1024
+    x = torch.empty(n, device="cuda").uniform_(-90.0, 2.0, generator=gen)
+    x[::97] = NEG_INF
+    g = torch.randn(n, device="cuda", generator=gen)
+    xg = x.clone().requires_grad_(True)
+    (dx,) = torch.autograd.grad(expf.ExpFn.apply(xg, True), xg, g)
+    xp = x.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(expf.exp_plain(xp), xp, g)
+    torch.testing.assert_close(dx, want, rtol=1e-5, atol=1e-6)
+    err_exp = float((dx - want).abs().max())
+    print("train:", json.dumps(dict(
+        phase="f: kernels against plain versions, with gradients", card=smi,
+        kernels=a, plain=b,
+        softmax_grad=dict(shape=[rows, T], path=plan.path,
+                          cluster=plan.cluster, max_abs_err=err_sm),
+        exp_grad=dict(shape=[n], max_abs_err=err_exp))))
+
+
+def train_card_against_cpu(torch) -> None:
+    """(g): the smoke model trains 3 steps on the card and on the CPU."""
+    from repro_torch.configs import load_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = load_config("olmo-1b", "smoke")
+    fn = make_train_step(cfg, AdamWConfig(lr=1e-2, warmup_steps=1,
+                                          total_steps=3))
+    losses, batches = {}, {}
+    for device in ("cpu", "cuda"):
+        masters = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        state = init_train_state(cfg, masters.to(device))
+        pipe = TokenPipeline(cfg, ShapeConfig("g", 64, 4, "train"),
+                             device=device)
+        losses[device], batches[device] = [], []
+        for step in range(3):
+            batch = pipe.host_batch_at(step)
+            state, m = fn(state, batch)
+            losses[device].append(float(m["loss"]))
+            batches[device].append(batch["tokens"].cpu())
+    for a, b in zip(batches["cpu"], batches["cuda"]):
+        if not torch.equal(a, b):
+            _fail("(g): the card's token batches differ from the CPU's")
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        if not math.isclose(a, b, rel_tol=1e-4):
+            _fail(f"(g): losses {losses['cuda']} on the card vs "
+                  f"{losses['cpu']} on the CPU")
+    print(f"train: (g) olmo-1b smoke, 3 steps: losses on the card "
+          f"{losses['cuda']} match the CPU's {losses['cpu']} (rtol 1e-4); "
+          "batches identical")
+
+
+def train_phase(torch, smi) -> dict:
+    """Phase 6.  Returns the main-path launches of each kernel over (d)'s
+    two runs and (e)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    full = train_full(torch, smi)
+    torch.cuda.empty_cache()
+    chunked = train_chunked(torch, smi)
+    torch.cuda.empty_cache()
+    train_against_plain(torch, smi)
+    torch.cuda.empty_cache()
+    train_card_against_cpu(torch)
+    print(f"train: phase wall time {time.perf_counter() - t0:.1f} s")
+    return {k: full[k] + chunked[k] for k in full}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -919,15 +1253,19 @@ def main() -> int:
     print(card.describe())
     from tools import logf_variants
     variants_build = logf_variants.start_build()   # beside the kernels'
+    from tools import launch_floor
+    floor_build = launch_floor.start_build()
     t_build = _build.build_all()
     print(f"kernels built in {t_build:.1f} s into {_build.BUILD_DIR}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    entries = check_kernels(torch, gen, card, variants_build)
+    entries = check_kernels(torch, gen, card, variants_build, floor_build)
     check_reference(torch)
     serving, serving_paths = serve_full(torch)
     facade, facade_paths = check_facade(torch, gen)
+    training = train_phase(torch, smi)
     for e in entries:
+        e["launches_training"] = training[e["name"]]
         phase = "facade" if e["name"] in ("logf", "montecarlo") else "serving"
         counts, paths = ((facade, facade_paths) if phase == "facade"
                          else (serving, serving_paths))

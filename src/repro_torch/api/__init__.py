@@ -5,7 +5,7 @@ its registry (``kernel``, ``kernels``, ``specs``, ``register_kernel``)
 and the scoped :func:`config`.  ``kernel(name).run(...)`` reaches the
 port's entry points in ``kernels.ops``, which launch the CUDA kernels on
 the card.  ``evaluate``, ``Target``, ``Tuner`` and ``Report`` come with the
-analytic model (ROADMAP §1 item 4).
+analytic model (ROADMAP §1 item 3).
 """
 
 from repro_torch.api.registry import (KernelSpec, kernel, kernels,

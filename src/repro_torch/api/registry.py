@@ -9,7 +9,7 @@ aliases and documentation equal the JAX package's; ``op`` and
 ``reference`` point into ``repro_torch.kernels``.
 
 The analytic model behind ``schedule``, ``baseline_trace`` and the tunable
-workloads is not ported yet (ROADMAP §1 item 4): those raise
+workloads is not ported yet (ROADMAP §1 item 3): those raise
 ``NotImplementedError`` where the JAX package would answer.  The spec's
 callables are dotted references resolved at first use, so importing this
 module imports no kernel.
@@ -26,7 +26,7 @@ from repro_torch.core.analytics import TABLE_I
 ISA_KERNELS = list(TABLE_I)
 
 _NOT_PORTED = ("the analytic Snitch model (core.kernels_isa, tune.workloads) "
-               "is not ported yet: ROADMAP §1 item 4")
+               "is not ported yet: ROADMAP §1 item 3")
 
 
 def _resolve_ref(ref: str):

@@ -20,7 +20,7 @@ def config(impl: str | None = None, tuned_defaults: bool | None = None):
 
     ``impl``            'auto' | 'cuda' | 'reference' kernel dispatch;
     ``tuned_defaults``  tuned block tilings: ``True`` is not ported yet
-                        (ROADMAP §1 item 3) and raises; ``False`` and
+                        (ROADMAP §1 item 2) and raises; ``False`` and
                         ``None`` change nothing, since the port's kernels
                         have no block tiling to tune.
 
@@ -30,7 +30,7 @@ def config(impl: str | None = None, tuned_defaults: bool | None = None):
     if tuned_defaults:
         raise NotImplementedError(
             "config(tuned_defaults=True): the tuned tiling defaults come "
-            "with the analytic model's tuner, ROADMAP §1 item 3")
+            "with the analytic model's tuner, ROADMAP §1 item 2")
     from repro_torch.kernels import ops as kops
     with kops.overrides(impl=impl):
         yield

@@ -7,6 +7,8 @@ The stacked period parameters ``stack.periods.sub{i}.*`` are split along
 their leading ``n_periods`` axis onto the per-period modules.  Weight
 matrices are stored in ``cfg.dtype`` and 1-D parameters in fp32, which is
 the arithmetic of the JAX package's cast of its fp32 masters before use.
+``train_state_from_jax`` carries a whole JAX train state across, so that
+both packages can train from the same state.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import LMModel, resolve_device
+from repro_torch.models.model import LMModel, load_params
+from repro_torch.train.train_step import TrainState, init_train_state
 
 
 def _flatten(tree, prefix: str = ""):
@@ -44,11 +47,27 @@ def state_dict_from_jax(np_params: dict) -> dict[str, np.ndarray]:
 
 def params_from_jax(np_params: dict, cfg: ModelConfig,
                     device: torch.device | str = "cuda") -> LMModel:
-    device = resolve_device(device)
-    dt = getattr(torch, cfg.dtype)
-    sd = {name: torch.tensor(arr).to(
-              device=device, dtype=dt if arr.ndim >= 2 else torch.float32)
-          for name, arr in state_dict_from_jax(np_params).items()}
-    model = LMModel(cfg, device="meta")
-    model.load_state_dict(sd, strict=True, assign=True)
-    return model
+    return load_params(state_dict_from_jax(np_params), cfg, device)
+
+
+def _fp32(arr: np.ndarray) -> np.ndarray:
+    """A writable fp32 copy of ``arr``: exact for bf16 (whose numpy dtype
+    torch does not read) and fp32 alike."""
+    return np.array(arr, dtype=np.float32)
+
+
+def train_state_from_jax(np_state: dict, cfg: ModelConfig,
+                         device: torch.device | str = "cuda") -> TrainState:
+    """The port's ``TrainState`` from the JAX package's train state
+    ``{"params", "opt": {"m", "v", "step"}}`` with numpy leaves: fp32
+    masters, the working copy cast from them, the moments in
+    ``cfg.opt_state_dtype`` and the step."""
+    params = state_dict_from_jax(np_state["params"])
+    masters = load_params({k: _fp32(v) for k, v in params.items()},
+                          cfg.replace(dtype=cfg.param_dtype), device)
+    state = init_train_state(cfg, masters)
+    for part in ("m", "v"):
+        for name, arr in state_dict_from_jax(np_state["opt"][part]).items():
+            state.opt[part][name].copy_(torch.from_numpy(_fp32(arr)))
+    state.opt["step"].fill_(int(np_state["opt"]["step"]))
+    return state

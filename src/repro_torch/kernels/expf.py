@@ -6,7 +6,10 @@ The kernel replaces the JAX package's ``repro/kernels/expf.py:_exp_kernel``.
 ``csrc/copift_exp.cuh``, which the softmax kernel shares; it keeps the
 kernel's phase order so that the two agree to fp32 rounding.  ``exp_plan``
 picks the kernel's vector or scalar path by alignment;
-``exp_cuda.path_launches`` counts the launches of each.
+``exp_cuda.path_launches`` counts the launches of each.  ``ExpFn`` gives
+the exp a gradient: its forward is the kernel (or, on the CPU, the plain
+version), its backward ``g * y`` in plain PyTorch from the saved output, as
+the JAX package has no backward kernel.
 """
 
 from __future__ import annotations
@@ -22,13 +25,20 @@ from repro_torch.kernels.ref import _EXP2_POLY, _LN2_HI, _LN2_LO, _LOG2E
 
 def exp_phases(x: torch.Tensor, clamp_hi: bool) -> torch.Tensor:
     """The three COPIFT phases on an fp32 tensor.  ``clamp_hi`` adds the exp
-    kernel's ``x > 88 → inf``; the softmax kernel leaves it out."""
+    kernel's ``x > 88 → inf``; the softmax kernel leaves it out.
+
+    ``x`` enters the phases clamped to [-104, 89], as the JAX package's
+    ``exp_ref`` does: the final selects overwrite every value the clamp
+    moves, so the result is the kernel's, and autograd through this version
+    stays finite at masked scores (an unclamped ``-inf`` makes ``r`` NaN,
+    whose gradient the select would multiply by 0)."""
+    xc = x.clamp(-104.0, 89.0)
     # --- FP phase 0: z, round-to-nearest kd, Cody–Waite remainder r.
-    z = x * _LOG2E
+    z = xc * _LOG2E
     kd = torch.round(z)               # half to even, as jnp.round and rintf
-    r = (x - kd * _LN2_HI) - kd * _LN2_LO
-    # --- INT phase 1: 2^kd in the exponent field.  Masked scores make kd
-    # ±inf; clamping before the conversion keeps it in int32 range.
+    r = (xc - kd * _LN2_HI) - kd * _LN2_LO
+    # --- INT phase 1: 2^kd in the exponent field; clamping before the
+    # conversion keeps it in the exponent's range.
     ki = kd.clamp(-126.0, 127.0).to(torch.int32)
     s = ((ki + 127) << 23).view(torch.float32)
     # --- FP phase 2: Horner polynomial and scale.
@@ -91,3 +101,24 @@ def exp_cuda(x: torch.Tensor) -> torch.Tensor:
 
 exp_cuda.launches = 0
 exp_cuda.path_launches = {"vector": 0, "scalar": 0}
+
+
+class ExpFn(torch.autograd.Function):
+    """The COPIFT exp with a gradient.  ``use_kernel`` picks the forward:
+    ``exp_cuda`` on a CUDA tensor, ``exp_plain`` otherwise; both return
+    ``x``'s dtype.  The backward is ``g * y`` from the saved output, in
+    fp32."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+        if use_kernel:
+            y = exp_cuda(x.to(torch.float32).contiguous()).to(x.dtype)
+        else:
+            y = exp_plain(x).to(x.dtype)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (y,) = ctx.saved_tensors
+        return (g.to(torch.float32) * y.to(torch.float32)).to(y.dtype), None

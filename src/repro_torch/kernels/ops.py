@@ -8,7 +8,9 @@ Implementation selection (``impl=``):
 * ``"reference"``  — the plain PyTorch version, on whatever device.
 
 There is no fallback from a kernel to its plain version: a kernel that does
-not build or launch raises.  The kernels take any length, so the JAX
+not build or launch raises.  ``exp`` and ``softmax`` carry a gradient
+(``expf.ExpFn``, ``softmax.SoftmaxFn``) on both routes, so the CPU runs the
+backward that the card runs.  The kernels take any length, so the JAX
 package's padding to (rows, 1024) tiles has no counterpart here.
 
 The default comes in two layers, as in the JAX package: a scoped override
@@ -89,10 +91,7 @@ def _use_kernel(impl: str | None, device: torch.device) -> bool:
 def exp(x: torch.Tensor, impl: str | None = None) -> torch.Tensor:
     """COPIFT exp (glibc-expf style), elementwise, any shape; fp32 compute,
     the result in ``x``'s dtype."""
-    if not _use_kernel(impl, x.device):
-        return _exp.exp_plain(x).to(x.dtype)
-    xf = x.to(torch.float32).contiguous()
-    return _exp.exp_cuda(xf).to(x.dtype)
+    return _exp.ExpFn.apply(x, _use_kernel(impl, x.device))
 
 
 def log(x: torch.Tensor, impl: str | None = None) -> torch.Tensor:
@@ -112,12 +111,9 @@ def softmax(x: torch.Tensor, axis: int = -1,
     takes the plain version, as in the JAX package."""
     axis = axis % x.ndim
     if axis != x.ndim - 1:
-        return _softmax.softmax_plain(x.movedim(axis, -1)).movedim(-1, axis)
-    if not _use_kernel(impl, x.device):
-        return _softmax.softmax_plain(x)
-    cols = x.shape[-1]
-    y = _softmax.softmax_cuda(x.reshape(-1, cols).contiguous())
-    return y.reshape(x.shape)
+        y = _softmax.SoftmaxFn.apply(x.movedim(axis, -1), False)
+        return y.movedim(-1, axis)
+    return _softmax.SoftmaxFn.apply(x, _use_kernel(impl, x.device))
 
 
 def uniform(seed: int, shape: tuple[int, ...], kind: str = "xoshiro128p",

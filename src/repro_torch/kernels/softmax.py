@@ -5,7 +5,10 @@ The kernel replaces the JAX package's
 ``repro/kernels/softmax_tpu.py:_softmax_kernel``.  Compute is fp32 and the
 output keeps the input's dtype (fp32 or bf16).  ``softmax_plan`` picks one
 of the kernel's three paths by shape; ``softmax_cuda.path_launches`` counts
-the launches of each.
+the launches of each.  ``SoftmaxFn`` gives the softmax a gradient: its
+forward is the kernel (or, on the CPU, the plain version), its backward
+``y * (g - sum(g * y))`` in plain PyTorch from the saved output, as the JAX
+package has no backward kernel.
 """
 
 from __future__ import annotations
@@ -146,3 +149,27 @@ def softmax_cuda(x: torch.Tensor) -> torch.Tensor:
 
 softmax_cuda.launches = 0
 softmax_cuda.path_launches = {"warp": 0, "cluster": 0, "sweep": 0}
+
+
+class SoftmaxFn(torch.autograd.Function):
+    """The COPIFT softmax over the last axis, with a gradient.
+    ``use_kernel`` picks the forward: ``softmax_cuda`` on a CUDA tensor,
+    ``softmax_plain`` otherwise.  The backward computes in fp32 from the
+    saved output and returns ``x``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+        if use_kernel:
+            cols = x.shape[-1]
+            y = softmax_cuda(x.reshape(-1, cols).contiguous()).reshape(x.shape)
+        else:
+            y = softmax_plain(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (y,) = ctx.saved_tensors
+        yf, gf = y.to(torch.float32), g.to(torch.float32)
+        dx = yf * (gf - (gf * yf).sum(dim=-1, keepdim=True))
+        return dx.to(y.dtype), None

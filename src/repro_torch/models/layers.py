@@ -20,7 +20,9 @@ from torch import nn
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
-    # Serving only: no parameter takes a gradient in this package yet.
+    # Created without gradients, as serving needs none;
+    # ``train.train_step.init_train_state`` turns them on for the working
+    # copy that training differentiates.
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 

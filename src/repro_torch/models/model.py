@@ -2,14 +2,20 @@
 
 Inputs are a dict ("batch"): ``tokens`` (B, T) int, with optional
 ``positions`` (B, T), or ``positions3`` (3, B, T) for M-RoPE.  ``forward``
-covers prefill (no cache) and decode (cache + index).  The loss waits for
-the training slice.
+covers training and prefill (no cache) and decode (cache + index);
+``loss_fn`` is the chunked cross-entropy with a z-loss that training
+differentiates.
 """
 
 from __future__ import annotations
 
+from collections.abc import Mapping
+
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -54,6 +60,27 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     for m in model.modules():
         if hasattr(m, "init_"):
             m.init_(generator)
+    return model
+
+
+def load_params(state_dict: Mapping[str, torch.Tensor | np.ndarray],
+                cfg: ModelConfig,
+                device: torch.device | str = "cuda") -> LMModel:
+    """An ``LMModel`` holding copies of ``state_dict``'s values (its names,
+    every parameter present), weight matrices cast to ``cfg.dtype`` and 1-D
+    parameters to fp32: the JAX package's cast of its masters before use."""
+    device = resolve_device(device)
+    dt = getattr(torch, cfg.dtype)
+
+    def copy(v):
+        kw = dict(device=device, dtype=dt if v.ndim >= 2 else torch.float32)
+        if isinstance(v, torch.Tensor):
+            return v.detach().to(copy=True, **kw)
+        return torch.tensor(v, **kw)
+
+    sd = {name: copy(v) for name, v in state_dict.items()}
+    model = LMModel(cfg, device="meta")
+    model.load_state_dict(sd, strict=True, assign=True)
     return model
 
 
@@ -106,3 +133,53 @@ def forward(params: LMModel, cfg: ModelConfig, batch: dict, cache=None,
         x = x[:, -1:]
     logits = _readout(params, cfg, x)
     return logits.to(torch.float32), cache, aux
+
+
+#: tokens per chunk of the chunked cross-entropy: the (B, chunk, V) fp32
+#: logits of one chunk are the largest intermediate of the loss.
+CE_CHUNK = 256
+
+
+def _ce_terms(params: LMModel, cfg: ModelConfig, hidden, targets):
+    """(Σ (logz - ll), Σ logz², count) over one chunk; fp32 math on the
+    logits of the compute dtype."""
+    logits = _readout(params, cfg, hidden).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    if cfg.vocab_parallel_ce:
+        # The JAX package's vocab-sharded form: the target's logit by a
+        # one-hot contraction instead of a gather (one device: no shards).
+        onehot = F.one_hot(targets.long(), cfg.vocab_size).to(logits.dtype)
+        ll = (logits * onehot).sum(dim=-1)
+    else:
+        ll = logits.gather(-1, targets.long()[..., None])[..., 0]
+    count = torch.tensor(float(targets.numel()), device=logits.device)
+    return (logz - ll).sum(), logz.square().sum(), count
+
+
+def loss_fn(params: LMModel, cfg: ModelConfig, batch: dict,
+            aux_weight: float = 0.01, z_weight: float = 1e-4):
+    """Next-token cross-entropy + auxiliary loss + z-loss.  The CE runs in
+    ``CE_CHUNK``-token chunks, each under ``torch.utils.checkpoint``, so the
+    logits never exceed (B, CE_CHUNK, V) and are recomputed in the backward
+    pass.  Returns (loss, metrics) with metrics ``nll``, ``aux``, ``zloss``
+    and ``ppl``, 0-d fp32 tensors."""
+    hidden, _, aux = forward(params, cfg, batch, logits_mode="hidden")
+    targets = batch["tokens"][:, 1:]
+    pred_h = hidden[:, :-1]
+    T = targets.shape[1]
+    chunk = min(CE_CHUNK, T)
+
+    def ce_chunk(h, t):
+        return _ce_terms(params, cfg, h, t)
+
+    sums = None
+    for lo in range(0, T, chunk):
+        terms = checkpoint(ce_chunk, pred_h[:, lo:lo + chunk],
+                           targets[:, lo:lo + chunk], use_reentrant=False)
+        sums = terms if sums is None else [a + b for a, b in zip(sums, terms)]
+    nll_sum, z_sum, count = sums
+    nll = nll_sum / count
+    zloss = z_sum / count
+    loss = nll + aux_weight * aux + z_weight * zloss
+    return loss, {"nll": nll, "aux": aux, "zloss": zloss,
+                  "ppl": torch.exp(nll)}

@@ -6,6 +6,11 @@ JAX package scans one compiled period body over stacked parameters; PyTorch
 runs eagerly, so here the periods are an ``nn.ModuleList`` walked by a
 Python loop, and a cache is a list with one entry per period.
 
+When gradients are on and there is no cache, ``cfg.remat == "full"``
+recomputes each period in the backward pass (``torch.utils.checkpoint``),
+as the JAX package's ``jax.checkpoint`` of its period body does; the
+recompute launches the period's kernels a second time.
+
 This slice ports the dense attention sub-layer (mixer ``"a"`` with a dense
 FFN).  The Mamba and RWKV-6 mixers and MoE FFNs raise
 ``NotImplementedError`` until their ROADMAP item is done.
@@ -17,6 +22,7 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -148,18 +154,39 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int,
                         for _ in range(n_periods)]}
 
 
+def _remat_wrap(cfg: ModelConfig, fn):
+    """``fn`` recomputed in the backward pass for ``remat="full"``."""
+    if cfg.remat == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (keep the matmul outputs, recompute the rest) is "
+            "not ported to repro_torch yet: ROADMAP.md §1 item 4")
+    return fn
+
+
 def apply_stack(params: Stack, cfg: ModelConfig, x, positions, cache=None,
                 cache_index=None):
     """returns (x, cache, total_aux); the cache is updated in place and the
-    auxiliary loss of a dense stack is 0."""
+    auxiliary loss of a dense stack is 0.  Periods are rematerialised as
+    ``cfg.remat`` says when gradients are on and there is no cache."""
     prefix, period, n_periods = layer_plan(cfg)
-    layers = [(params.prefix[i], "prefix", i, None)
-              for i in range(len(prefix))]
-    layers += [(params.periods[j][f"sub{i}"], "periods", j, f"sub{i}")
-               for j in range(n_periods) for i in range(len(period))]
-    for block, part, j, name in layers:
-        c = None
-        if cache is not None:
-            c = cache[part][j] if name is None else cache[part][j][name]
-        x, _ = apply_sublayer(block, cfg, x, positions, c, cache_index)
+    for i in range(len(prefix)):
+        c = cache["prefix"][i] if cache is not None else None
+        x, _ = apply_sublayer(params.prefix[i], cfg, x, positions, c,
+                              cache_index)
+
+    def period_body(x, blocks, pcache):
+        for i in range(len(period)):
+            c = pcache[f"sub{i}"] if pcache is not None else None
+            x, _ = apply_sublayer(blocks[f"sub{i}"], cfg, x, positions, c,
+                                  cache_index)
+        return x
+
+    body = period_body
+    if cache is None and torch.is_grad_enabled():
+        body = _remat_wrap(cfg, period_body)
+    for j in range(n_periods):
+        pcache = cache["periods"][j] if cache is not None else None
+        x = body(x, params.periods[j], pcache)
     return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)

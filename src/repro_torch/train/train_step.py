@@ -1,0 +1,152 @@
+"""The training step: microbatched gradient accumulation, global-norm
+clipping and AdamW, as the JAX package's ``repro.train.train_step``.
+
+The JAX package keeps fp32 master parameters and casts them once per
+forward pass to the compute dtype; the gradient of a master is the
+cotangent of its working copy, cast up.  ``TrainState`` does the same
+arithmetic in PyTorch: ``params`` holds the fp32 masters, ``model`` the
+working copy (weight matrices in ``cfg.dtype``) that takes the gradients,
+and after each update the masters are cast into the working copy.  Where a
+parameter's working dtype is the master dtype (1-D parameters, and every
+parameter of an fp32 config) the master IS the working parameter.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import LMModel, load_params, loss_fn
+from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
+                                         init_opt_state)
+
+
+@dataclass
+class TrainState:
+    """``model``: the working copy, whose parameters take gradients;
+    ``params``: the fp32 masters by state-dict name; ``opt``: ``m`` and
+    ``v`` by the same names, and the int32 ``step``."""
+    model: LMModel
+    params: dict[str, torch.Tensor]
+    opt: dict
+
+    @torch.no_grad()
+    def sync_working_copy(self) -> None:
+        """Cast every master into its working parameter, where they differ."""
+        for name, w in self.model.named_parameters():
+            master = self.params[name]
+            if w.data_ptr() != master.data_ptr():
+                w.copy_(master)
+
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        """The live tensors that define the state, flat: ``params/<name>``,
+        ``opt/m/<name>``, ``opt/v/<name>`` and ``opt/step``.  The working
+        copy is not among them: it is the masters, cast."""
+        out = {f"params/{k}": v for k, v in self.params.items()}
+        for part in ("m", "v"):
+            out.update({f"opt/{part}/{k}": v
+                        for k, v in self.opt[part].items()})
+        out["opt/step"] = self.opt["step"]
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, arrays: dict[str, torch.Tensor]) -> None:
+        """Copy ``arrays`` (this state's keys, shapes and dtypes) into the
+        state, then refresh the working copy."""
+        live = self.state_dict()
+        if set(arrays) != set(live):
+            missing = sorted(set(live) - set(arrays))[:5]
+            extra = sorted(set(arrays) - set(live))[:5]
+            raise KeyError(f"state keys differ: missing {missing}, "
+                           f"unexpected {extra}")
+        for k, t in live.items():
+            a = arrays[k]
+            if a.shape != t.shape or a.dtype != t.dtype:
+                raise ValueError(f"{k}: stored {a.dtype}{tuple(a.shape)}, "
+                                 f"state {t.dtype}{tuple(t.shape)}")
+            t.copy_(a)
+        self.sync_working_copy()
+
+
+def init_train_state(cfg: ModelConfig, params: LMModel) -> TrainState:
+    """A train state whose masters are ``params``'s values in
+    ``cfg.param_dtype``, with zero moments.  ``params`` is best a model in
+    the master dtype (``init_params(cfg.replace(dtype=cfg.param_dtype),
+    ...)``): a model in a narrower dtype gives masters rounded to it.  The
+    working copy is ``params`` itself when it already holds ``cfg``'s
+    storage dtypes, else a new model cast from the masters."""
+    pdt, dt = getattr(torch, cfg.param_dtype), getattr(torch, cfg.dtype)
+    masters = {k: p.detach().to(pdt) for k, p in params.named_parameters()}
+    if all(p.dtype == (dt if p.ndim >= 2 else torch.float32)
+           for p in params.parameters()):
+        model = params
+    else:
+        model = load_params(masters, cfg, next(iter(masters.values())).device)
+    for name, p in model.named_parameters():
+        p.requires_grad_(True)
+        if p.dtype == pdt:                   # one tensor for both roles
+            masters[name] = p.data
+    return TrainState(model=model, params=masters,
+                      opt=init_opt_state(masters, cfg.opt_state_dtype))
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                    n_microbatches: int = 1, compress_pod_grads: bool = False):
+    """Returns ``train_step(state, batch) -> (state, metrics)``, which
+    updates ``state`` in place.
+
+    ``batch``: a dict of (B, T) tensors.  With ``n_microbatches > 1`` the
+    batch is split on its leading axis and the gradients are accumulated in
+    fp32, ``acc + g / n`` per microbatch (the JAX package's ``lax.scan``),
+    so that one microbatch's activations are alive at a time.  Metrics are
+    0-d tensors: ``loss``, ``nll``, ``aux``, ``zloss``, ``ppl`` (means over
+    the microbatches), ``lr`` and ``grad_norm``.
+    """
+    if compress_pod_grads:
+        raise NotImplementedError(
+            "compress_pod_grads: int8 cross-pod gradient compression comes "
+            "with parallel/, ROADMAP.md §1 item 4")
+
+    def grads_of(model: LMModel, batch: dict):
+        names, params = zip(*model.named_parameters())
+        loss, metrics = loss_fn(model, cfg, batch)
+        grads = torch.autograd.grad(loss, params)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+            dict(zip(names, grads))
+
+    def compute_grads(model: LMModel, batch: dict):
+        if n_microbatches == 1:
+            loss, metrics, grads = grads_of(model, batch)
+            return loss, metrics, {k: g.to(torch.float32)
+                                   for k, g in grads.items()}
+        for k, x in batch.items():
+            if x.shape[0] % n_microbatches:
+                raise ValueError(f"batch[{k!r}] has {x.shape[0]} rows, not "
+                                 f"a multiple of {n_microbatches} "
+                                 "microbatches")
+        acc, losses, metricses = None, [], []
+        for i in range(n_microbatches):
+            mb = {k: x.chunk(n_microbatches)[i] for k, x in batch.items()}
+            loss, metrics, grads = grads_of(model, mb)
+            if acc is None:
+                acc = {k: torch.zeros(g.shape, dtype=torch.float32,
+                                      device=g.device)
+                       for k, g in grads.items()}
+            for k, g in grads.items():
+                acc[k] += g.to(torch.float32) / n_microbatches
+            losses.append(loss)
+            metricses.append(metrics)
+        metrics = {k: torch.stack([m[k] for m in metricses]).mean()
+                   for k in metricses[0]}
+        return torch.stack(losses).mean(), metrics, acc
+
+    def train_step(state: TrainState, batch: dict):
+        loss, metrics, grads = compute_grads(state.model, batch)
+        opt_metrics = adamw_update(opt_cfg, state.params, grads, state.opt)
+        del grads
+        state.sync_working_copy()
+        return state, dict(metrics, loss=loss, **opt_metrics)
+
+    return train_step

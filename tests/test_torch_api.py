@@ -168,7 +168,7 @@ class TestNotPortedYet:
                      lambda: api.kernel("softmax").max_block,
                      lambda: api.kernel("prng").schedule()):
             with pytest.raises(NotImplementedError,
-                               match="ROADMAP §1 item 4"):
+                               match="ROADMAP §1 item 3"):
                 call()
 
     def test_failures_the_jax_package_raises_too(self):
@@ -182,7 +182,7 @@ class TestNotPortedYet:
             api.kernel("softmax").table_i
 
     def test_tuned_defaults(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
+        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 2"):
             with api.config(tuned_defaults=True):
                 pass  # pragma: no cover
         with api.config(impl="reference", tuned_defaults=False):

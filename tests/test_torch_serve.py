@@ -120,21 +120,40 @@ class TestLaunch:
         np.testing.assert_array_equal(a.tokens, b.tokens)
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
-    code = (
-        "import importlib, pkgutil, sys\n"
-        "import repro_torch\n"
-        "import repro_torch.api, repro_torch.core, repro_torch.kernels.ops\n"
-        "assert repro_torch.api.kernel('logf').op.startswith('repro_torch.')\n"
-        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
-        " 'repro_torch.')]\n"
-        "for m in mods: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
-        "m.startswith('repro.'))\n"
-        "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 20 else 0)\n")
+#: Imports every module of the port in a fresh interpreter and prints the
+#: modules it walked and those of ``sys.modules`` matching ``forbidden``.
+_IMPORT_ALL = (
+    "import importlib, pkgutil, sys\n"
+    "import repro_torch\n"
+    "import repro_torch.api, repro_torch.core, repro_torch.kernels.ops\n"
+    "assert repro_torch.api.kernel('logf').op.startswith('repro_torch.')\n"
+    "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+    " 'repro_torch.')]\n"
+    "for m in mods: importlib.import_module(m)\n"
+    "bad = sorted(m for m in sys.modules if forbidden(m))\n"
+    "print(len(mods), bad)\n"
+    "print(*mods)\n"
+    "sys.exit(1 if bad or len(mods) < 20 else 0)\n")
+
+
+def _import_all(forbidden: str) -> list[str]:
+    code = f"forbidden = {forbidden}\n" + _IMPORT_ALL
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    return proc.stdout.splitlines()[1].split()
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    mods = _import_all("lambda m: m == 'jax' or m.startswith(('jax.', "
+                       "'jaxlib')) or m == 'repro' or m.startswith('repro.')")
+    for m in ("train.optimizer", "train.train_step", "train.checkpoint",
+              "train.fault", "data.pipeline", "obs.metrics", "obs.record",
+              "launch.train"):
+        assert f"repro_torch.{m}" in mods, m
+
+
+def test_port_does_not_import_msgpack():
+    """The card's machine has no msgpack: checkpoints use ``torch.save``."""
+    _import_all("lambda m: m.split('.')[0] == 'msgpack'")

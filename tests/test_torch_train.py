@@ -1,0 +1,403 @@
+"""The port's training path on the CPU against the JAX package, on olmo-1b
+smoke (and gemma-2b smoke where norm gains matter): ``loss_fn`` and every
+parameter's gradient against ``jax.value_and_grad`` through the JAX
+reference path, with and without rematerialisation; the softmax and exp
+``autograd.Function``s against ``jax.vjp`` of the reference; ``adamw_update``
+and ``lr_at``; three steps of ``make_train_step`` (1 and 2 microbatches, fp32
+and bf16 compute) against the JAX loss trajectory; the ``NotImplementedError``s
+of what is not ported; the ``launch.train`` entry point.
+
+Tolerances: loss rtol 1e-5, gradients rtol 1e-4 / atol 1e-6 (fp32 sums in
+another order; the port's analytic softmax/exp backward against JAX's
+derivative of the exp polynomial, which differ by ~4e-7 relative); the
+Functions rtol 1e-5 / atol 1e-6; AdamW rtol 1e-6 on the moments and rtol
+1e-6 / atol 1e-7 on the parameters (the global norm sums its leaves in
+another order, one fp32 ulp apart, and the clip scale carries that into
+updates of up to ~20 at lr 1e-2) and atol 1e-9 on the moments (~one fp32
+ulp at their 1e-2 scale, where ``0.9 m + 0.1 g`` cancels; bf16 moments to
+one bf16 ulp); trajectories rtol 1e-4 in fp32 and 2e-3 in bf16, where the
+two frameworks round matmul outputs and gradient sums to bf16 at different
+places.  After three steps the parameters agree to rtol 1e-4 / atol 1e-6
+but for at most 0.1 % of the elements, and all to lr: Adam's update of an
+element whose gradient is ~0 is ~lr times the sign of that gradient's
+rounding noise.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import load_config as jax_load_config  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro.models import model as jmodel  # noqa: E402
+from repro.train import optimizer as jopt  # noqa: E402
+from repro.train import train_step as jstep  # noqa: E402
+from repro_torch.configs import load_config  # noqa: E402
+from repro_torch.convert import (  # noqa: E402
+    params_from_jax, state_dict_from_jax, train_state_from_jax)
+from repro_torch.kernels import expf, ops, softmax  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import model as tmodel  # noqa: E402
+from repro_torch.models.attention import NEG_INF  # noqa: E402
+from repro_torch.train import optimizer as topt  # noqa: E402
+from repro_torch.train.train_step import (init_train_state,  # noqa: E402
+                                          make_train_step)
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _close(got, want, rtol, atol, msg=""):
+    np.testing.assert_allclose(np.asarray(got, dtype=np.float64),
+                               np.asarray(want, dtype=np.float64),
+                               rtol=rtol, atol=atol, err_msg=msg)
+
+
+@pytest.fixture(scope="module")
+def olmo():
+    jcfg = jax_load_config("olmo-1b", "smoke")
+    jparams = jax.jit(lambda k: jmodel.init_params(jcfg, k))(
+        jax.random.PRNGKey(1))
+    return jcfg, jparams, load_config("olmo-1b", "smoke")
+
+
+def _tokens(cfg, B, T, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, T)).astype(np.int32)
+
+
+def _jax_loss_and_grads(jcfg, jparams, toks):
+    (loss, metrics), grads = jax.jit(jax.value_and_grad(
+        lambda p, b: jmodel.loss_fn(p, jcfg, b), has_aux=True))(
+            jparams, {"tokens": jnp.asarray(toks)})
+    return float(loss), _np(metrics), state_dict_from_jax(_np(grads))
+
+
+def _port_loss_and_grads(cfg, np_params, toks):
+    model = params_from_jax(np_params, cfg, "cpu")
+    names, params = zip(*model.named_parameters())
+    for p in params:
+        p.requires_grad_(True)
+    loss, metrics = tmodel.loss_fn(model, cfg, {"tokens":
+                                                torch.from_numpy(toks)})
+    grads = torch.autograd.grad(loss, params)
+    return float(loss.detach()), metrics, dict(zip(names, grads))
+
+
+class TestLossAndGrads:
+    @pytest.mark.parametrize("remat,ce_chunk", [("none", 256), ("full", 256),
+                                                ("full", 8)],
+                             ids=["remat-none", "remat-full",
+                                  "remat-full-ce-chunks"])
+    def test_match_jax(self, olmo, monkeypatch, remat, ce_chunk):
+        """ce_chunk 8 over 20 targets: two chunks and a remainder of 4."""
+        jcfg, jparams, cfg = olmo
+        for mod in (jmodel, tmodel):
+            monkeypatch.setattr(mod, "CE_CHUNK", ce_chunk)
+        jcfg, cfg = jcfg.replace(remat=remat), cfg.replace(remat=remat)
+        toks = _tokens(cfg, 2, 21)
+        jl, jm, jg = _jax_loss_and_grads(jcfg, jparams, toks)
+        tl, tm, tg = _port_loss_and_grads(cfg, _np(jparams), toks)
+        _close(tl, jl, 1e-5, 0)
+        for k in ("nll", "zloss", "ppl", "aux"):
+            _close(tm[k].detach(), jm[k], 1e-5, 1e-7, k)
+        assert set(tg) == set(jg)
+        for name, g in tg.items():
+            _close(g, jg[name], 1e-4, 1e-6, name)
+
+    def test_remat_grads_bit_equal(self, olmo):
+        jcfg, jparams, cfg = olmo
+        toks = _tokens(cfg, 2, 17, seed=3)
+        _, _, none = _port_loss_and_grads(cfg.replace(remat="none"),
+                                          _np(jparams), toks)
+        _, _, full = _port_loss_and_grads(cfg.replace(remat="full"),
+                                          _np(jparams), toks)
+        for name, g in none.items():
+            assert torch.equal(g, full[name]), name
+
+    def test_chunked_attention_grads_match_jax(self, olmo, monkeypatch):
+        """Lowered thresholds send training down the chunked attention
+        path, whose exp is the exp Function."""
+        for mod in (jattn, tattn):
+            monkeypatch.setattr(mod, "CHUNKED_THRESHOLD", 256)
+            monkeypatch.setattr(mod, "KV_CHUNK", 16)
+            monkeypatch.setattr(mod, "Q_BLOCK", 16)
+        jcfg, jparams, cfg = olmo
+        toks = _tokens(cfg, 1, 33, seed=5)
+        jl, _, jg = _jax_loss_and_grads(jcfg, jparams, toks)
+        tl, _, tg = _port_loss_and_grads(cfg, _np(jparams), toks)
+        _close(tl, jl, 1e-5, 0)
+        for name, g in tg.items():
+            _close(g, jg[name], 1e-4, 1e-6, name)
+
+    def test_vocab_parallel_ce_matches_jax(self, olmo):
+        jcfg, jparams, cfg = olmo
+        toks = _tokens(cfg, 2, 13, seed=4)
+        gather, _, _ = _port_loss_and_grads(cfg, _np(jparams), toks)
+        jl, _, _ = _jax_loss_and_grads(jcfg.replace(vocab_parallel_ce=True),
+                                       jparams, toks)
+        tl, _, _ = _port_loss_and_grads(cfg.replace(vocab_parallel_ce=True),
+                                        _np(jparams), toks)
+        _close(tl, jl, 1e-5, 0)
+        _close(tl, gather, 1e-6, 0)
+
+
+class TestKernelGradients:
+    """The Functions' input gradients, for a random cotangent."""
+
+    def _scores(self, rows=64, cols=161, seed=0):
+        rng = np.random.default_rng(seed)
+        x = (rng.normal(0, 1, (rows, cols)) * 4).astype(np.float32)
+        x[:, cols // 2 + 1:] = NEG_INF
+        x[0] = NEG_INF
+        g = rng.normal(0, 1, (rows, cols)).astype(np.float32)
+        return x, g
+
+    def _port_vjp(self, fn, x, g):
+        xt = torch.from_numpy(x).requires_grad_(True)
+        y = fn(xt)
+        (dx,) = torch.autograd.grad(y, xt, torch.from_numpy(g))
+        return y.detach(), dx
+
+    def test_softmax_matches_jax(self):
+        x, g = self._scores()
+        y, vjp = jax.vjp(lambda a: jops.softmax(a, impl="reference"),
+                         jnp.asarray(x))
+        got_y, got = self._port_vjp(lambda a: ops.softmax(a), x, g)
+        _close(got_y, y, 1e-5, 1e-7)
+        _close(got, vjp(jnp.asarray(g))[0], 1e-5, 1e-6)
+
+    def test_exp_matches_jax(self):
+        rng = np.random.default_rng(1)
+        x = (rng.normal(0, 10, 4096)).astype(np.float32)
+        x[::97] = NEG_INF
+        g = rng.normal(0, 1, 4096).astype(np.float32)
+        y, vjp = jax.vjp(lambda a: jops.exp(a, impl="reference"),
+                         jnp.asarray(x))
+        got_y, got = self._port_vjp(lambda a: ops.exp(a), x, g)
+        _close(got_y, y, 2e-6, 0)
+        _close(got, vjp(jnp.asarray(g))[0], 1e-5, 1e-6)
+
+    @pytest.mark.parametrize("name", ["softmax", "exp"])
+    def test_function_matches_autograd_through_plain_version(self, name):
+        """The check ``chip_smoke.py`` makes on the card at the training
+        shapes, here at a small one: the analytic backward against autograd
+        through the plain version (whose exp derivative is the polynomial's)."""
+        x, g = self._scores(seed=2)
+        fn = {"softmax": lambda a: softmax.SoftmaxFn.apply(a, False),
+              "exp": lambda a: expf.ExpFn.apply(a, False)}[name]
+        plain = {"softmax": softmax.softmax_plain, "exp": expf.exp_plain}[name]
+        _, want = self._port_vjp(plain, x, g)
+        got_y, got = self._port_vjp(fn, x, g)
+        assert bool(torch.isfinite(want).all())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+    def test_bf16_softmax_gradient_keeps_dtype(self):
+        x, g = self._scores(seed=3)
+        xt = torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+        (dx,) = torch.autograd.grad(ops.softmax(xt), xt,
+                                    torch.from_numpy(g).to(torch.bfloat16))
+        assert dx.dtype == torch.bfloat16 and bool(torch.isfinite(dx).all())
+
+    def test_other_axis_has_a_gradient(self):
+        x, g = self._scores(rows=8, cols=8, seed=4)
+        xt = torch.from_numpy(x).requires_grad_(True)
+        (dx,) = torch.autograd.grad(ops.softmax(xt, axis=0), xt,
+                                    torch.from_numpy(g))
+        y = softmax.softmax_plain(xt.detach().T).T
+        gt = torch.from_numpy(g)
+        torch.testing.assert_close(dx, y * (gt - (gt * y).sum(0)),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def _opt_inputs(arch, opt_dtype, seed=0):
+    """A JAX train state of ``arch`` smoke at step 5 with random moments,
+    and random gradients, as numpy."""
+    jcfg = jax_load_config(arch, "smoke").replace(opt_state_dtype=opt_dtype)
+    jparams = _np(jax.jit(lambda k: jmodel.init_params(jcfg, k))(
+        jax.random.PRNGKey(2)))
+    rng = np.random.default_rng(seed)
+    dt = jnp.dtype(opt_dtype)
+
+    def rand(scale, positive=False):
+        def f(p):
+            a = rng.normal(0, scale, p.shape).astype(np.float32)
+            return np.asarray(np.abs(a) if positive else a).astype(dt)
+        return jax.tree.map(f, jparams)
+    state = {"params": jparams,
+             "opt": {"m": rand(1e-2), "v": rand(1e-4, True),
+                     "step": np.int32(5)}}
+    grads = jax.tree.map(lambda p: rng.normal(0, 0.5, p.shape).astype(
+        np.float32), jparams)
+    return jcfg, state, grads
+
+
+class TestAdamW:
+    @pytest.mark.parametrize("arch", ["olmo-1b", "gemma-2b"])
+    @pytest.mark.parametrize("opt_dtype", ["float32", "bfloat16"])
+    def test_update_matches_jax(self, arch, opt_dtype):
+        """gemma-2b has norm gains (named ``g``: no decay); the grads'
+        global norm is above ``grad_clip``, so clipping scales them."""
+        jcfg, np_state, np_grads = _opt_inputs(arch, opt_dtype)
+        c = jopt.AdamWConfig(lr=1e-2, warmup_steps=3, total_steps=20)
+        want_p, want_opt, want_m = jopt.adamw_update(
+            c, np_state["params"], np_grads, np_state["opt"])
+        cfg = load_config(arch, "smoke").replace(opt_state_dtype=opt_dtype)
+        state = train_state_from_jax(np_state, cfg, "cpu")
+        grads = {k: torch.from_numpy(np.array(v)) for k, v in
+                 state_dict_from_jax(np_grads).items()}
+        got_m = topt.adamw_update(topt.AdamWConfig(**vars(c)), state.params,
+                                  grads, state.opt)
+        assert float(want_m["grad_norm"]) > c.grad_clip
+        _close(got_m["grad_norm"], want_m["grad_norm"], 1e-6, 0)
+        _close(got_m["lr"], want_m["lr"], 1e-6, 0)
+        assert int(state.opt["step"]) == int(want_opt["step"]) == 6
+        for name, p in state_dict_from_jax(_np(want_p)).items():
+            _close(state.params[name], p, 1e-6, 1e-7, name)
+        for part in ("m", "v"):
+            for name, a in state_dict_from_jax(_np(want_opt[part])).items():
+                got = state.opt[part][name]
+                assert str(got.dtype) == f"torch.{opt_dtype}"
+                rtol = 1e-6 if opt_dtype == "float32" else 2 ** -7
+                _close(got.float(), np.asarray(a, np.float32), rtol, 1e-9,
+                       f"{part} {name}")
+
+    def test_decay_by_name(self):
+        assert topt._is_matrix("embed.table")
+        assert topt._is_matrix("stack.periods.0.sub0.ffn.up.w")
+        assert not topt._is_matrix("stack.periods.0.sub0.norm1.g")
+        assert not topt._is_matrix("stack.periods.0.sub0.attn.q.b")
+        c = topt.AdamWConfig(lr=1.0, weight_decay=0.5, warmup_steps=0,
+                             total_steps=1, min_lr_ratio=1.0)
+        params = {"a.w": torch.ones(2, 2), "a.g": torch.ones(2),
+                  "b.g": torch.ones(2, 2)}
+        zero = {k: torch.zeros_like(v) for k, v in params.items()}
+        topt.adamw_update(c, params, zero, topt.init_opt_state(params))
+        assert torch.equal(params["a.w"], torch.full((2, 2), 0.5))
+        assert torch.equal(params["a.g"], torch.ones(2))
+        assert torch.equal(params["b.g"], torch.ones(2, 2))
+
+    def test_lr_schedule_matches_jax(self):
+        c = jopt.AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=100)
+        steps = np.arange(0, 120, dtype=np.int32)
+        want = np.asarray(jax.vmap(lambda s: jopt.lr_at(c, s))(
+            jnp.asarray(steps)))
+        got = topt.lr_at(topt.AdamWConfig(**vars(c)), torch.from_numpy(steps))
+        assert got.dtype == torch.float32
+        _close(got, want, 1e-6, 0)
+
+
+def _trajectories(jcfg, cfg, n_micro, steps=3, B=4, T=17):
+    jparams = jax.jit(lambda k: jmodel.init_params(jcfg, k))(
+        jax.random.PRNGKey(3))
+    jstate = jstep.init_train_state(jcfg, jparams)
+    c = jopt.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=steps)
+    jfn = jax.jit(jstep.make_train_step(jcfg, c, n_microbatches=n_micro))
+    state = train_state_from_jax(_np(jstate), cfg, "cpu")
+    fn = make_train_step(cfg, topt.AdamWConfig(**vars(c)),
+                         n_microbatches=n_micro)
+    want, got = [], []
+    for s in range(steps):
+        toks = _tokens(cfg, B, T, seed=10 + s)
+        jstate, jm = jfn(jstate, {"tokens": jnp.asarray(toks)})
+        state, m = fn(state, {"tokens": torch.from_numpy(toks)})
+        want.append({k: float(v) for k, v in jm.items()})
+        got.append({k: float(v) for k, v in m.items()})
+    return want, got, jstate, state
+
+
+class TestTrainStep:
+    @pytest.mark.parametrize("n_micro", [1, 2])
+    def test_trajectory_matches_jax(self, n_micro):
+        jcfg = jax_load_config("olmo-1b", "smoke")
+        want, got, jstate, state = _trajectories(
+            jcfg, load_config("olmo-1b", "smoke"), n_micro)
+        for s, (w, g) in enumerate(zip(want, got)):
+            for k in ("loss", "nll", "zloss", "grad_norm", "lr"):
+                _close(g[k], w[k], 1e-4, 0, f"step {s} {k}")
+        for name, p in state_dict_from_jax(_np(jstate["params"])).items():
+            got = state.params[name].numpy()
+            far = ~np.isclose(got, p, rtol=1e-4, atol=1e-6)
+            assert far.mean() <= 1e-3, (name, far.sum())
+            assert np.abs(got - p).max() <= 1e-2, name      # lr
+
+    def test_bf16_trajectory_matches_jax(self):
+        jcfg = jax_load_config("olmo-1b", "smoke").replace(dtype="bfloat16")
+        cfg = load_config("olmo-1b", "smoke").replace(dtype="bfloat16")
+        want, got, _, state = _trajectories(jcfg, cfg, 1)
+        for s, (w, g) in enumerate(zip(want, got)):
+            _close(g["loss"], w["loss"], 2e-3, 0, f"step {s}")
+        w = state.model.stack.periods[0]["sub0"].attn.q.w
+        master = state.params["stack.periods.0.sub0.attn.q.w"]
+        assert w.dtype == torch.bfloat16 and master.dtype == torch.float32
+        assert torch.equal(w, master.to(torch.bfloat16))
+
+    def test_masters_of_fp32_configs_are_the_parameters(self, olmo):
+        _, _, cfg = olmo
+        model = tmodel.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+        state = init_train_state(cfg, model)
+        assert state.model is model
+        for name, p in model.named_parameters():
+            assert p.requires_grad
+            assert p.data_ptr() == state.params[name].data_ptr()
+
+    def test_microbatches_must_divide_the_batch(self, olmo):
+        _, _, cfg = olmo
+        state = init_train_state(cfg, tmodel.init_params(
+            cfg, torch.Generator().manual_seed(0), "cpu"))
+        fn = make_train_step(cfg, topt.AdamWConfig(), n_microbatches=2)
+        with pytest.raises(ValueError, match="microbatches"):
+            fn(state, {"tokens": torch.zeros((3, 9), dtype=torch.int32)})
+
+
+class TestNotPorted:
+    def test_compress_pod_grads(self, olmo):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
+            make_train_step(olmo[2], topt.AdamWConfig(),
+                            compress_pod_grads=True)
+
+    def test_remat_dots(self, olmo):
+        _, _, cfg = olmo
+        cfg = cfg.replace(remat="dots")
+        model = tmodel.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
+            tmodel.loss_fn(model, cfg,
+                           {"tokens": torch.zeros((1, 5), dtype=torch.int32)})
+
+    def test_autotune(self):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
+            launch_train.main(["--device", "cpu", "--autotune"])
+
+
+class TestLaunch:
+    def test_main_on_cpu_prints_jax_launch_train_lines(self, capsys, tmp_path):
+        out = tmp_path / "m.json"
+        hist = launch_train.main(["--device", "cpu", "--steps", "3",
+                                  "--batch", "2", "--seq", "16",
+                                  "--log-every", "1", "--metrics-out",
+                                  str(out)])
+        text = capsys.readouterr().out
+        assert [h["step"] for h in hist] == [0, 1, 2]
+        for h in hist:
+            assert np.isfinite([h["loss"], h["grad_norm"]]).all()
+            assert h["seconds"] > 0
+        assert "step     2 loss=" in text and " nll=" in text and \
+            " lr=" in text and " gnorm=" in text
+        assert f"[done] steps=3 loss {hist[0]['loss']:.4f} -> " \
+            f"{hist[-1]['loss']:.4f}" in text
+        assert out.exists()
+
+    def test_card_is_the_default_device(self):
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            launch_train.main(["--steps", "1"])
