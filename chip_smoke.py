@@ -34,7 +34,9 @@ and prints no result line):
    version's timed call.  Two design sweeps run in the same phase: logf's three
    table gathers (``tools/logf_variants.py``, built beside the kernels) and
    every segment count S of Monte Carlo's segment path
-   (``tools/mc_segments.py``).  One JSON line ``{"kernels": [...]}`` at the end.
+   (``tools/mc_segments.py``).  Phase 7's shapes are among the cases:
+   uniform at 10,485,760, exp at 32 M and 32 K, softmax at 32 x 8192.
+   One JSON line ``{"kernels": [...]}`` at the end.
 3. A reference check: the olmo-1b smoke model on the card (kernels) against
    the same parameters on the CPU (plain versions).
 4. OLMo-1B at full width, random weights from a seeded ``torch.Generator``,
@@ -85,7 +87,34 @@ and prints no result line):
    step (host clock ending in ``torch.cuda.synchronize``, median of the
    steps after the first), tokens/s, peak ``torch.cuda.max_memory_allocated``
    and launches per step of each kernel and path.
-7. The last line: ``{"ok": true, "device": {...}}``.
+7. The MoE, Mamba, RWKV-6 and audio families (``families_phase``), each
+   model freed before the next, random bf16 weights from a seeded
+   ``torch.Generator`` on the card; prints each path's and the phase's
+   wall time:
+   (h) DeepSeekMoE-16B at full width and depth through
+       ``launch.serve.main``, batch 4, prompt 128, 32 tokens, greedy twice
+       (identical tokens), then at temperature 1.0, seed 3: softmax on its
+       warp path only, uniform in the sampled run only; decode ms/token
+       beside the bound of reading every weight once a step;
+   (i) one full-width Jamba period (8 of its 32 layers, as one card holds
+       it): ``ServeEngine(max_len=8192, batch=1)``, prompt 7168, 8 greedy
+       tokens: exactly 50 exp launches on the vector path (25 query-block
+       x KV-chunk pairs: the 4096 window skips 3 of the causal 28) and 7
+       decode softmaxes on the cluster path (32 x 8192);
+   (j) RWKV-6 1.6B at full width through ``launch.serve.main``, sampled:
+       uniform once a slot and token, no softmax, no exp;
+   (k) HuBERT-XLarge at full width trains 3 steps through
+       ``launch.train.main`` (batch 4 x seq 2048, remat full): uniform 3 a
+       step, one of them the 10,485,760 frame-embedding values; softmax 96
+       a step on the cluster path (non-causal 131,072 x 2,048); exp 0;
+       finite losses; ms/step, tokens/s, peak memory;
+   (l) the smoke model of deepseek-moe, grok-1, jamba, rwkv6 and hubert on
+       the card against the CPU: logits rtol 1e-4; jamba and rwkv6 also
+       served as phase 3 serves olmo (prefill + 11 decode steps, greedy
+       and sampled, identical tokens); deepseek and jamba train 3 steps as
+       (g) trains olmo (one state, identical batches, losses rtol 1e-4).
+   The JSON line's ``launches_families`` are this phase's.
+8. The last line: ``{"ok": true, "device": {...}}``.
 
 Phase 2 also times an empty kernel at the uniform kernel's grids
 (``tools/launch_floor.py``, built beside the kernels): the card's floor
@@ -326,7 +355,8 @@ def check_kernels(torch, gen, card, variants_build,
             (2, softmax.CLUSTER_MAX_COLS, f32,
              "widest row of the cluster path"),
             (2, 1 << 20, f32, "beyond the cluster path"),
-            (4 * 16 * 2048, 2048, f32, "training scores (d), cluster k 1")]:
+            (4 * 16 * 2048, 2048, f32, "training scores (d), cluster k 1"),
+            (32, 8192, f32, "Jamba decode (i), 32 heads x 8192")]:
         x = torch.randn(rows, cols, device="cuda", generator=gen) * 4
         x[:, cols // 2 + 1:] = NEG_INF
         x[0] = NEG_INF
@@ -384,7 +414,10 @@ def check_kernels(torch, gen, card, variants_build,
             (n16m, 0, [1, 16, 1, 1024, 1024], "one KV chunk of prefill (c)"),
             (n16m + 3, 0, [n16m + 3], "16 M + 3: a tail of 3"),
             (n16m, 1, [n16m], "16 M, a view at a 4-byte offset"),
-            (16384, 0, [1, 16, 1, 1024], "the correction of prefill (c)")]:
+            (16384, 0, [1, 16, 1, 1024], "the correction of prefill (c)"),
+            (2 * n16m, 0, [1, 8, 4, 1024, 1024],
+             "one KV chunk of Jamba's prefill (i)"),
+            (32768, 0, [1, 8, 4, 1024], "the correction of prefill (i)")]:
         buf = torch.empty(n + offset, device="cuda").uniform_(-90.0, 2.0,
                                                               generator=gen)
         buf[::97] = NEG_INF
@@ -413,7 +446,9 @@ def check_kernels(torch, gen, card, variants_build,
     cases = []
     for n, what in [(50304, "one sampling draw, V = 50304"),
                     (1 << 24, "16 M values"),
-                    (4 * 2049, "one token-pipeline draw, batch 4 x 2049")]:
+                    (4 * 2049, "one token-pipeline draw, batch 4 x 2049"),
+                    (4 * 2048 * 1280,
+                     "HuBERT's frame embeddings (k), 4 x 2048 x 1280")]:
         for kind in ("xoshiro128p", "lcg"):
             for seed in (0, 2 ** 31 + 5, 2 ** 32 - 1):
                 got = prng.uniform_cuda(seed, n, kind)
@@ -636,14 +671,16 @@ def _entry(name, source, replaces, cases, headline) -> dict:
 # phase 3: the port on the card against the port on the CPU, small model
 # ---------------------------------------------------------------------------
 
-def check_reference(torch) -> None:
+def check_reference(torch, arch: str = "olmo-1b") -> None:
+    """``arch``'s smoke model served on the card and on the CPU: prefill
+    and 11 decode steps, greedy and sampled."""
     import numpy as np
 
     from repro_torch.configs import load_config
     from repro_torch.models.model import init_params
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = load_config("olmo-1b", "smoke")
+    cfg = load_config(arch, "smoke")
     cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     card = init_params(cfg, torch.Generator().manual_seed(0), "cpu").cuda()
     prompts = np.random.default_rng(0).integers(
@@ -656,9 +693,9 @@ def check_reference(torch) -> None:
         torch.testing.assert_close(got.logits.cpu(), want.logits, rtol=1e-4,
                                    atol=1e-4)
         if not np.array_equal(got.tokens, want.tokens):
-            _fail(f"smoke reference {kw}: tokens on the card differ from "
-                  "the CPU's")
-    print("reference: olmo-1b smoke on the card matches the CPU "
+            _fail(f"{arch} smoke reference {kw}: tokens on the card differ "
+                  "from the CPU's")
+    print(f"reference: {arch} smoke on the card matches the CPU "
           "(logits rtol 1e-4 atol 1e-4, tokens identical, greedy and sampled)")
 
 
@@ -741,7 +778,8 @@ def _profiled(torch, fn, label: str) -> dict:
     return res, wall_ms, sum(by_name.values()), len(dev), by_name
 
 
-def profile_serving(torch, engine, prompts, n_steps: int) -> None:
+def profile_serving(torch, engine, prompts, n_steps: int,
+                    label: str = "serve", model: str = "OLMo-1B") -> None:
     """Where the time of a request of (a)'s shape goes: one generate()
     under torch.profiler.  Prints the device-busy share of the request's
     wall time and the kernels that take the most device time.  A
@@ -749,10 +787,11 @@ def profile_serving(torch, engine, prompts, n_steps: int) -> None:
     inflates the wall time."""
     engine.generate(prompts, 2)                      # warm-up
     res, _, busy_ms, n_ops, by_name = _profiled(
-        torch, lambda: engine.generate(prompts, n_steps), "serve")
+        torch, lambda: engine.generate(prompts, n_steps), label)
     wall_ms = (res.prefill_s + res.decode_s) * 1e3
     print("profile:", json.dumps(dict(
-        request=f"batch 4, prompt 128, {n_steps} new tokens, greedy",
+        request=f"{model}, batch 4, prompt 128, {n_steps} new tokens, "
+                "greedy",
         wall_ms_under_profiler=wall_ms,
         device_busy_ms=busy_ms if n_ops else "not measured",
         device_busy_share=busy_ms / wall_ms if n_ops else "not measured",
@@ -760,35 +799,50 @@ def profile_serving(torch, engine, prompts, n_steps: int) -> None:
         top=[[k, v] for k, v in by_name.most_common(8)])))
 
 
-def serve_full(torch) -> dict:
+def serve_cli(arch: str, greedy: str, sampled: str) -> list:
+    """``launch.serve.main`` at full width, batch 4, prompt 128, 32 new
+    tokens: greedy twice (identical tokens, each the argmax of its
+    logits), then at temperature 1.0, seed 3.  Returns the three rows."""
     import numpy as np
 
     from repro_torch.configs import load_config
     from repro_torch.launch import serve
+
+    V = load_config(arch, "full").vocab_size
+    argv = ["--arch", arch, "--variant", "full", "--batch", "4",
+            "--prompt-len", "128", "--gen", "32", "--device", "cuda"]
+    rows = []
+    a1, row = _request(f"{greedy}: greedy, run 1", lambda: serve.main(argv),
+                       V)
+    rows.append(row)
+    a2, row = _request(f"{greedy}: greedy, run 2", lambda: serve.main(argv),
+                       V)
+    rows.append(row)
+    if not np.array_equal(a1.tokens, a2.tokens):
+        _fail(f"({greedy}): two greedy runs gave different tokens")
+    if not np.array_equal(a1.tokens[:, 128:], a1.logits.argmax(-1).cpu()):
+        _fail(f"({greedy}): greedy tokens are not the argmax of their "
+              "logits")
+    del a1, a2
+    _, row = _request(f"{sampled}: temperature 1.0, seed 3", lambda: serve.main(
+        argv + ["--temperature", "1.0", "--seed", "3"]), V)
+    rows.append(row)
+    return rows
+
+
+def serve_full(torch) -> dict:
+    import numpy as np
+
+    from repro_torch.configs import load_config
     from repro_torch.models.model import init_params
     from repro_torch.serve.engine import ServeEngine
 
     cfg = load_config("olmo-1b", "full")
     V = cfg.vocab_size
-    argv = ["--arch", "olmo-1b", "--variant", "full", "--batch", "4",
-            "--prompt-len", "128", "--gen", "32", "--device", "cuda"]
     total = {k: 0 for k in _counters()}
     paths = {k: dict.fromkeys(v, 0)
              for k, v in _path_launches(_counters()).items()}
-    rows = []
-
-    a1, row = _request("a: greedy, run 1", lambda: serve.main(argv), V)
-    rows.append(row)
-    a2, row = _request("a: greedy, run 2", lambda: serve.main(argv), V)
-    rows.append(row)
-    if not np.array_equal(a1.tokens, a2.tokens):
-        _fail("(a): two greedy runs gave different tokens")
-    if not np.array_equal(a1.tokens[:, 128:], a1.logits.argmax(-1).cpu()):
-        _fail("(a): greedy tokens are not the argmax of their logits")
-    b, row = _request("b: temperature 1.0, seed 3", lambda: serve.main(
-        argv + ["--temperature", "1.0", "--seed", "3"]), V)
-    rows.append(row)
-    del a1, a2, b
+    rows = serve_cli("olmo-1b", "a", "b")
 
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     engine = ServeEngine(cfg, params, max_len=5120, batch=1, device="cuda")
@@ -1178,8 +1232,10 @@ def train_against_plain(torch, smi) -> None:
         exp_grad=dict(shape=[n], max_abs_err=err_exp))))
 
 
-def train_card_against_cpu(torch) -> None:
-    """(g): the smoke model trains 3 steps on the card and on the CPU."""
+def train_card_against_cpu(torch, arch: str = "olmo-1b",
+                           tag: str = "g") -> None:
+    """(g): ``arch``'s smoke model trains 3 steps on the card and on the
+    CPU from one state, on identical batches."""
     from repro_torch.configs import load_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import TokenPipeline
@@ -1187,7 +1243,7 @@ def train_card_against_cpu(torch) -> None:
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_step import init_train_state, make_train_step
 
-    cfg = load_config("olmo-1b", "smoke")
+    cfg = load_config(arch, "smoke")
     fn = make_train_step(cfg, AdamWConfig(lr=1e-2, warmup_steps=1,
                                           total_steps=3))
     losses, batches = {}, {}
@@ -1204,12 +1260,13 @@ def train_card_against_cpu(torch) -> None:
             batches[device].append(batch["tokens"].cpu())
     for a, b in zip(batches["cpu"], batches["cuda"]):
         if not torch.equal(a, b):
-            _fail("(g): the card's token batches differ from the CPU's")
+            _fail(f"({tag}) {arch}: the card's token batches differ from "
+                  "the CPU's")
     for a, b in zip(losses["cuda"], losses["cpu"]):
         if not math.isclose(a, b, rel_tol=1e-4):
-            _fail(f"(g): losses {losses['cuda']} on the card vs "
+            _fail(f"({tag}) {arch}: losses {losses['cuda']} on the card vs "
                   f"{losses['cpu']} on the CPU")
-    print(f"train: (g) olmo-1b smoke, 3 steps: losses on the card "
+    print(f"train: ({tag}) {arch} smoke, 3 steps: losses on the card "
           f"{losses['cuda']} match the CPU's {losses['cpu']} (rtol 1e-4); "
           "batches identical")
 
@@ -1228,6 +1285,266 @@ def train_phase(torch, smi) -> dict:
     train_card_against_cpu(torch)
     print(f"train: phase wall time {time.perf_counter() - t0:.1f} s")
     return {k: full[k] + chunked[k] for k in full}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the MoE, Mamba, RWKV-6 and audio families
+# ---------------------------------------------------------------------------
+
+#: Jamba's one period at full width: eight layers of 32, as one card holds.
+JAMBA_PERIOD = dict(n_layers=8, layer_types="mmmmammm")
+
+
+def _weight_bytes(cfg) -> int:
+    """Bytes of every parameter a decode step reads: all but the token
+    embedding, of which it gathers one row a token."""
+    from repro_torch.models.model import LMModel, working_dtype
+    model = LMModel(cfg, "meta")
+    return sum(p.numel() * working_dtype(cfg, n, p.ndim).itemsize
+               for n, p in model.named_parameters() if n != "embed.table")
+
+
+def _n_params(cfg) -> int:
+    from repro_torch.models.model import LMModel
+    return sum(p.numel() for p in LMModel(cfg, "meta").parameters())
+
+
+def _only_path(label, by_path, path, n=None):
+    """Fail unless ``by_path`` counts launches on ``path`` alone (exactly
+    ``n`` of them where given)."""
+    others = {k: v for k, v in by_path.items() if k != path}
+    if by_path[path] <= 0 or any(others.values()) or (
+            n is not None and by_path[path] != n):
+        want = f"{n} on" if n is not None else "launches on"
+        _fail(f"{label}: paths {by_path}, expected {want} the {path} path "
+              "only")
+
+
+def _free(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_deepseek(torch, smi) -> list:
+    """(h): DeepSeekMoE-16B, full width and depth, served twice greedy and
+    once sampled through ``launch.serve.main``, then a request profiled."""
+    import numpy as np
+
+    from repro_torch.configs import load_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = load_config("deepseek-moe-16b", "full")
+    V = cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    rows = serve_cli(cfg.name, "h", "h")
+    for r in rows:
+        _only_path(r["request"], r["path_launches"]["softmax"], "warp")
+        if r["launches"]["exp"]:
+            _fail(f"{r['request']}: exp launched")
+        if (r["launches"]["uniform"] > 0) != (r is rows[2]):
+            _fail(f"{r['request']}: uniform launched "
+                  f"{r['launches']['uniform']} times")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    profile_serving(torch, ServeEngine(cfg, params, max_len=161, batch=4,
+                                       device="cuda"),
+                    np.random.default_rng(1).integers(0, V, (4, 128)), 16,
+                    label="deepseek", model="DeepSeekMoE-16B")
+    del params
+    bound_ms = _weight_bytes(cfg) / HBM_BYTES_PER_S * 1e3
+    print("families:", json.dumps(dict(
+        path="h: DeepSeekMoE-16B full width, 28 layers, batch 4, prompt 128, "
+             "32 new tokens", card=smi, parameters=_n_params(cfg),
+        prefill_ms=[r["prefill_ms"] for r in rows],
+        decode_ms_per_token=[r["decode_ms_per_token"] for r in rows],
+        decode_bound_ms_per_token=bound_ms,
+        decode_bound="every weight but the embedding read once a step "
+                     "(capacity dispatch computes all 64 experts a layer)",
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)))
+    _free(torch)
+    return rows
+
+
+def family_jamba(torch, smi) -> list:
+    """(i): one full-width Jamba period (8 layers of 32) prefills 7,168
+    tokens through chunked attention and decodes 8."""
+    import numpy as np
+
+    from repro_torch.configs import load_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = load_config("jamba-v0.1-52b", "full").replace(**JAMBA_PERIOD)
+    V = cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    engine = ServeEngine(cfg, params, max_len=8192, batch=1, device="cuda")
+    prompt = np.random.default_rng(0).integers(0, V, (1, 7168)).astype(
+        np.int32)
+    res, row = _request("i: jamba one period, prompt 7168, max_len 8192",
+                        lambda: engine.generate(prompt, 8), V)
+    # Query blocks 0..6 of 1024 against KV chunks of 1024: causal alone
+    # gives 1+2+...+7 = 28 block pairs; the 4096 window starts blocks 5 and
+    # 6 at chunks 1 and 2, so 25 pairs run, two exps each.
+    _only_path("(i) prefill", row["path_launches"]["exp"], "vector", 50)
+    _only_path("(i) decode", row["path_launches"]["softmax"], "cluster", 7)
+    if row["launches"]["uniform"]:
+        _fail("(i): uniform launched in a greedy request")
+    bound_ms = _weight_bytes(cfg) / HBM_BYTES_PER_S * 1e3
+    print("families:", json.dumps(dict(
+        path="i: Jamba-v0.1 full width, one period of 8 layers (the depth "
+             "cut from 32: 52 B parameters take ~104 GB in bf16), prompt "
+             "7168, 8 new tokens", card=smi, parameters=_n_params(cfg),
+        prefill_ms=row["prefill_ms"],
+        decode_ms_per_token=row["decode_ms_per_token"],
+        decode_bound_ms_per_token=bound_ms,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)))
+    del params, engine, res
+    _free(torch)
+    return [row]
+
+
+def family_rwkv(torch, smi) -> list:
+    """(j): RWKV-6 1.6B, full width and depth, sampled."""
+    from repro_torch.configs import load_config
+    from repro_torch.launch import serve
+
+    cfg = load_config("rwkv6-1.6b", "full")
+    argv = ["--arch", cfg.name, "--variant", "full", "--batch", "4",
+            "--prompt-len", "128", "--gen", "32", "--temperature", "1.0",
+            "--seed", "3", "--device", "cuda"]
+    _, row = _request("j: rwkv6 temperature 1.0, seed 3",
+                      lambda: serve.main(argv), cfg.vocab_size)
+    if row["launches"]["uniform"] != 4 * 32:
+        _fail(f"(j): uniform launched {row['launches']['uniform']} times, "
+              "not once a slot and token")
+    if row["launches"]["softmax"] or row["launches"]["exp"]:
+        _fail(f"(j): attention kernels launched in an attention-free "
+              f"model: {row['launches']}")
+    print("families:", json.dumps(dict(
+        path="j: RWKV-6 1.6B full width, 24 layers, batch 4, prompt 128, "
+             "32 sampled tokens", card=smi, parameters=_n_params(cfg),
+        prefill_ms=row["prefill_ms"],
+        decode_ms_per_token=row["decode_ms_per_token"])))
+    _free(torch)
+    return [row]
+
+
+def family_hubert(torch, smi) -> list:
+    """(k): HuBERT-XLarge, full width and depth, trains 3 steps through
+    ``launch.train.main``.  Returns its row of launches."""
+    from repro_torch.configs import load_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+
+    cfg = load_config("hubert-xlarge", "full")
+    n_embeds = 4 * 2048 * cfg.d_model
+    # One pipeline step alone: three uniform launches, one of them the
+    # frame embeddings' 10,485,760 values.
+    (batch, launches, _, _) = _main_path_run(
+        torch, lambda: TokenPipeline(cfg, ShapeConfig("k", 2048, 4, "train"),
+                                     device="cuda").host_batch_at(0))
+    if launches["uniform"] != 3 or batch["embeds"].numel() != n_embeds or \
+            batch["embeds"].dtype != torch.bfloat16:
+        _fail(f"(k): pipeline step launched uniform {launches['uniform']} "
+              f"times for embeds {tuple(batch['embeds'].shape)} "
+              f"{batch['embeds'].dtype}")
+    del batch
+    steps = 3
+    argv = ["--arch", cfg.name, "--variant", "full", "--batch", "4",
+            "--seq", "2048", "--steps", str(steps), "--log-every", "1",
+            "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    (hist, _), launches, paths, wall = _main_path_run(
+        torch, lambda: _train_main(argv))
+    peak = torch.cuda.max_memory_allocated()
+    _check_finite("(k)", hist)
+    if launches["uniform"] != 3 * steps:
+        _fail(f"(k): uniform launched {launches['uniform']} times in "
+              f"{steps} steps, not 3 a step")
+    # 48 layers, each softmax once in the forward and once in the remat
+    # recompute: non-causal 131,072 x 2,048 scores on the cluster path.
+    _only_path("(k)", paths["softmax"], "cluster", 96 * steps)
+    if launches["exp"]:
+        _fail(f"(k): exp launched {launches['exp']} times")
+    secs = [r["seconds"] for r in hist]
+    ms = statistics.median(secs[1:]) * 1e3
+    print("families:", json.dumps(dict(
+        path="k: HuBERT-XLarge full width, 48 layers, batch 4 x seq 2048, "
+             "bf16 compute, fp32 masters, remat full", card=smi,
+        parameters=_n_params(cfg), ms_per_step=ms,
+        ms_per_step_all=[t * 1e3 for t in secs],
+        tokens_per_s=4 * 2048 / (ms / 1e3), peak_memory_gb=peak / 1e9,
+        losses=[r["loss"] for r in hist],
+        grad_norms=[r["grad_norm"] for r in hist],
+        launches_per_step={k: v / steps for k, v in launches.items()},
+        wall_s=wall)))
+    _free(torch)
+    return [dict(launches=launches, path_launches=paths)]
+
+
+def family_smokes(torch) -> None:
+    """(l): each new family's smoke model on the card (kernels) against the
+    CPU (plain versions): forward logits; prefill and 11 decode steps,
+    greedy and sampled, for the recurrent families; 3 train steps of one
+    MoE and one SSM family."""
+    import numpy as np
+
+    from repro_torch.configs import load_config
+    from repro_torch.models.model import forward, init_params
+
+    rng = np.random.default_rng(0)
+    for arch in ("deepseek-moe-16b", "grok-1-314b", "jamba-v0.1-52b",
+                 "rwkv6-1.6b", "hubert-xlarge"):
+        cfg = load_config(arch, "smoke")
+        cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        card = init_params(cfg, torch.Generator().manual_seed(0),
+                           "cpu").cuda()
+        if cfg.frontend == "audio":
+            batch = {"embeds": torch.from_numpy(rng.uniform(
+                -1, 1, (2, 24, cfg.d_model)).astype(np.float32))}
+        else:
+            batch = {"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (2, 24)).astype(np.int32))}
+        with torch.no_grad():
+            want, _, _ = forward(cpu, cfg, batch)
+            got, _, _ = forward(card, cfg, {k: v.cuda()
+                                            for k, v in batch.items()})
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        print(f"families: (l) {arch} smoke forward on the card matches the "
+              "CPU (logits rtol 1e-4 atol 1e-4)")
+    for arch in ("jamba-v0.1-52b", "rwkv6-1.6b"):
+        check_reference(torch, arch)
+    for arch in ("deepseek-moe-16b", "jamba-v0.1-52b"):
+        train_card_against_cpu(torch, arch, "l")
+
+
+def families_phase(torch, smi) -> dict:
+    """Phase 7: (h) to (l), each freed before the next.  Returns the
+    main-path launches of each kernel, in total and by path."""
+    t0 = time.perf_counter()
+    rows, walls = [], {}
+    for label, run in (("h", family_deepseek), ("i", family_jamba),
+                       ("j", family_rwkv), ("k", family_hubert)):
+        t = time.perf_counter()
+        rows += run(torch, smi)
+        walls[label] = time.perf_counter() - t
+    t = time.perf_counter()
+    family_smokes(torch)
+    walls["l"] = time.perf_counter() - t
+    total = {k: sum(r["launches"][k] for r in rows) for k in _counters()}
+    paths = {k: dict.fromkeys(v, 0)
+             for k, v in _path_launches(_counters()).items()}
+    for r in rows:
+        for k, by_path in r["path_launches"].items():
+            for path, v in by_path.items():
+                paths[k][path] += v
+    print("families: wall time by path (s)", json.dumps(walls))
+    print(f"families: phase wall time {time.perf_counter() - t0:.1f} s")
+    return total, paths
 
 
 def main() -> int:
@@ -1264,8 +1581,12 @@ def main() -> int:
     serving, serving_paths = serve_full(torch)
     facade, facade_paths = check_facade(torch, gen)
     training = train_phase(torch, smi)
+    families, families_paths = families_phase(torch, smi)
     for e in entries:
         e["launches_training"] = training[e["name"]]
+        e["launches_families"] = families[e["name"]]
+        if e["name"] in families_paths:
+            e["launches_families_by_path"] = families_paths[e["name"]]
         phase = "facade" if e["name"] in ("logf", "montecarlo") else "serving"
         counts, paths = ((facade, facade_paths) if phase == "facade"
                          else (serving, serving_paths))

@@ -3,10 +3,11 @@
 ``params_from_jax`` takes the tree that ``repro.models.model.init_params``
 returns, with every leaf already converted to a numpy array (so this module
 needs no JAX), and returns the port's ``LMModel`` holding the same values.
-The stacked period parameters ``stack.periods.sub{i}.*`` are split along
-their leading ``n_periods`` axis onto the per-period modules.  Weight
-matrices are stored in ``cfg.dtype`` and 1-D parameters in fp32, which is
-the arithmetic of the JAX package's cast of its fp32 masters before use.
+The stacked period parameters ``stack.periods.sub{i}.*`` (1-D vectors, 2-D
+matrices and MoE's 3-D expert banks alike) are split along their leading
+``n_periods`` axis onto the per-period modules.  Each parameter is stored
+in its ``models.model.working_dtype``, the JAX package's cast of its fp32
+masters before use.
 ``train_state_from_jax`` carries a whole JAX train state across, so that
 both packages can train from the same state.
 """

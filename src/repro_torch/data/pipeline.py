@@ -2,7 +2,8 @@
 the JAX package's ``repro.data.pipeline``.
 
 ``kernels.ops.uniform`` (xoshiro128+ by default) produces the token stream:
-on the card the CUDA uniform kernel, two launches a step.  ``global_batch_at
+on the card the CUDA uniform kernel, two launches a step, and a third for
+the audio frontend's frame embeddings (B·T·d_model values).  ``global_batch_at
 (step)`` depends only on (seed, step, shape), and its batches equal the JAX
 package's bit for bit, so restart and resume reproduce the same batches.
 
@@ -42,10 +43,6 @@ class TokenPipeline:
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
                  pcfg: PipelineConfig = PipelineConfig(),
                  device: torch.device | str = "cuda"):
-        if cfg.frontend != "none":
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.frontend} frontend is not ported to "
-                "repro_torch yet")
         self.cfg = cfg
         self.shape = shape
         self.pcfg = pcfg
@@ -64,7 +61,9 @@ class TokenPipeline:
     def global_batch_at(self, step: int) -> dict:
         """Sticky-token stream: with probability 0.1 a token is a fresh
         uniform draw, else it repeats the one before, so that training
-        curves fall.  ``{"tokens": (B, T) int32}``."""
+        curves fall.  ``{"tokens": (B, T) int32}``; for the audio frontend
+        ``{"embeds": (B, T, d_model) bf16 uniforms in [-1, 1), "labels":
+        (B, T) int32}``."""
         B, T = self.shape.global_batch, self.shape.seq_len
         p_stick = 0.9
         V = self.cfg.vocab_size
@@ -77,6 +76,12 @@ class TokenPipeline:
         reset = (ur >= p_stick) | (t_idx == 0)
         src = torch.cummax(torch.where(reset, t_idx, 0), dim=1).values
         tokens = torch.gather(fresh, 1, src)
+        if self.cfg.frontend == "audio":
+            ue = kops.uniform(self._step_seed(step) ^ 0x5bd1e995,
+                              (B, T, self.cfg.d_model), kind=self.pcfg.kind,
+                              device=self.device)
+            return {"embeds": (ue * 2 - 1).to(torch.bfloat16),
+                    "labels": tokens[:, :T]}
         return {"tokens": tokens[:, :T]}
 
     def host_batch_at(self, step: int) -> dict:

@@ -5,8 +5,9 @@ Conventions (the JAX package's ``repro.models.layers``, in PyTorch idiom):
 * parameters live in ``nn.Module``s whose attribute names follow the JAX
   parameter tree, so ``repro_torch.convert`` maps one onto the other;
 * weight matrices are (d_in, d_out) and stored in the compute dtype, 1-D
-  parameters (norm gains, biases) in fp32: the arithmetic of the JAX
-  package's fp32 masters cast once to the compute dtype before use;
+  parameters (norm gains, biases) in fp32 until ``models.model`` applies
+  the JAX package's cast rule (``working_dtype``), which puts a period's
+  1-D parameters in the compute dtype too;
 * modules are created on an explicit ``device`` with uninitialised storage;
   ``init_`` fills them from an explicit ``torch.Generator``.
 """
@@ -112,14 +113,15 @@ def norm(kind: str, p: Norm, x: torch.Tensor, eps: float = 1e-6):
         var = xf.var(dim=-1, keepdim=True, correction=0)
         y = (xf - mu) * torch.rsqrt(var + eps)
         if kind == "layernorm":
-            y = y * p.g + p.b
+            y = y * p.g.to(torch.float32) + p.b.to(torch.float32)
         return y.to(x.dtype)
     ms = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(ms + eps)
+    g = p.g.to(torch.float32)
     if kind == "gemma_rmsnorm":               # gemma scales by (1 + g)
-        y = y * (1.0 + p.g)
+        y = y * (1.0 + g)
     else:
-        y = y * p.g
+        y = y * g
     return y.to(x.dtype)
 
 

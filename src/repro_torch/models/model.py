@@ -1,10 +1,11 @@
 """Top-level model: embedding → stack → norm → readout.
 
 Inputs are a dict ("batch"): ``tokens`` (B, T) int, with optional
-``positions`` (B, T), or ``positions3`` (3, B, T) for M-RoPE.  ``forward``
-covers training and prefill (no cache) and decode (cache + index);
-``loss_fn`` is the chunked cross-entropy with a z-loss that training
-differentiates.
+``positions`` (B, T), or ``positions3`` (3, B, T) for M-RoPE; for the audio
+frontend (hubert), ``embeds`` (B, T, D) frame embeddings and ``labels``
+(B, T) int.  ``forward`` covers training and prefill (no cache) and decode
+(cache + index); ``loss_fn`` is the chunked cross-entropy with a z-loss
+that training differentiates.
 """
 
 from __future__ import annotations
@@ -38,10 +39,6 @@ class LMModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        if cfg.frontend != "none":
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.frontend} frontend is not ported to "
-                "repro_torch yet")
         dt = getattr(torch, cfg.dtype)
         self.embed = L.Embedding(cfg.vocab_size, cfg.d_model, dt, device)
         self.stack = T.Stack(cfg, device)
@@ -50,16 +47,33 @@ class LMModel(nn.Module):
                      L.Linear(cfg.d_model, cfg.vocab_size, dt, device))
 
 
+_PERIODS = "stack.periods."
+
+
+def working_dtype(cfg: ModelConfig, name: str, ndim: int) -> torch.dtype:
+    """The dtype of parameter ``name`` (``ndim`` dimensions) in the working
+    copy: the JAX package's ``_cast_once`` casts every master of rank >= 2
+    to ``cfg.dtype`` and keeps the others in fp32.  A period's parameters
+    are stacked there on a leading ``n_periods`` axis, so a period's 1-D
+    parameters (norm gains, biases, RWKV's ``w0`` and ``mu_*``, Mamba's
+    ``D``) have rank 2 and take ``cfg.dtype``; the prefix's and the final
+    norm's stay fp32."""
+    rank = ndim + name.startswith(_PERIODS)
+    return getattr(torch, cfg.dtype) if rank >= 2 else torch.float32
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: torch.device | str = "cuda") -> LMModel:
     """Random parameters drawn from ``generator``, which must live on
-    ``device``: truncated normals in ±2σ with the JAX package's scales, norm
-    gains 1, biases 0.  Weight matrices are stored in ``cfg.dtype``, 1-D
-    parameters in fp32."""
+    ``device``: truncated normals in ±2σ with the JAX package's scales and
+    the JAX package's constants (norm gains 1, biases 0, RWKV's and
+    Mamba's fills), drawn in fp32 and stored in ``working_dtype``."""
     model = LMModel(cfg, resolve_device(device))
     for m in model.modules():
         if hasattr(m, "init_"):
             m.init_(generator)
+    for name, p in model.named_parameters():
+        p.data = p.data.to(working_dtype(cfg, name, p.ndim))
     return model
 
 
@@ -67,18 +81,17 @@ def load_params(state_dict: Mapping[str, torch.Tensor | np.ndarray],
                 cfg: ModelConfig,
                 device: torch.device | str = "cuda") -> LMModel:
     """An ``LMModel`` holding copies of ``state_dict``'s values (its names,
-    every parameter present), weight matrices cast to ``cfg.dtype`` and 1-D
-    parameters to fp32: the JAX package's cast of its masters before use."""
+    every parameter present), each cast to its ``working_dtype``: the JAX
+    package's cast of its masters before use."""
     device = resolve_device(device)
-    dt = getattr(torch, cfg.dtype)
 
-    def copy(v):
-        kw = dict(device=device, dtype=dt if v.ndim >= 2 else torch.float32)
+    def copy(name, v):
+        kw = dict(device=device, dtype=working_dtype(cfg, name, v.ndim))
         if isinstance(v, torch.Tensor):
             return v.detach().to(copy=True, **kw)
         return torch.tensor(v, **kw)
 
-    sd = {name: copy(v) for name, v in state_dict.items()}
+    sd = {name: copy(name, v) for name, v in state_dict.items()}
     model = LMModel(cfg, device="meta")
     model.load_state_dict(sd, strict=True, assign=True)
     return model
@@ -117,10 +130,12 @@ def forward(params: LMModel, cfg: ModelConfig, batch: dict, cache=None,
     logits_mode: "all" (B,T,V) | "last" (B,1,V — decode/prefill readout) |
     "hidden" (B,T,D)."""
     dt = getattr(torch, cfg.dtype)
-    tokens = batch["tokens"]
-    x = L.embed(params.embed, tokens, dt)
-    if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+    if cfg.frontend == "audio":
+        x = batch["embeds"].to(dt)
+    else:
+        x = L.embed(params.embed, batch["tokens"], dt)
+        if cfg.embed_scale:
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     B, T_len = x.shape[:2]
     positions = _positions(cfg, batch, B, T_len, x.device, cache_index)
 
@@ -158,14 +173,19 @@ def _ce_terms(params: LMModel, cfg: ModelConfig, hidden, targets):
 
 def loss_fn(params: LMModel, cfg: ModelConfig, batch: dict,
             aux_weight: float = 0.01, z_weight: float = 1e-4):
-    """Next-token cross-entropy + auxiliary loss + z-loss.  The CE runs in
+    """Next-token (per-frame, against ``labels``, for encoder-only
+    configs) cross-entropy + MoE auxiliary loss + z-loss.  The CE runs in
     ``CE_CHUNK``-token chunks, each under ``torch.utils.checkpoint``, so the
     logits never exceed (B, CE_CHUNK, V) and are recomputed in the backward
     pass.  Returns (loss, metrics) with metrics ``nll``, ``aux``, ``zloss``
     and ``ppl``, 0-d fp32 tensors."""
     hidden, _, aux = forward(params, cfg, batch, logits_mode="hidden")
-    targets = batch["tokens"][:, 1:]
-    pred_h = hidden[:, :-1]
+    if cfg.is_encoder_only:
+        targets = batch["labels"]
+        pred_h = hidden
+    else:
+        targets = batch["tokens"][:, 1:]
+        pred_h = hidden[:, :-1]
     T = targets.shape[1]
     chunk = min(CE_CHUNK, T)
 

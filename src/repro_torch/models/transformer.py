@@ -11,9 +11,11 @@ recomputes each period in the backward pass (``torch.utils.checkpoint``),
 as the JAX package's ``jax.checkpoint`` of its period body does; the
 recompute launches the period's kernels a second time.
 
-This slice ports the dense attention sub-layer (mixer ``"a"`` with a dense
-FFN).  The Mamba and RWKV-6 mixers and MoE FFNs raise
-``NotImplementedError`` until their ROADMAP item is done.
+Sub-layers hold the JAX package's mixers: attention (``"a"``), Mamba
+(``"m"``) or RWKV-6 (``"r"``), then a dense FFN, an MoE FFN or RWKV's
+channel mix.  Caches are dicts updated in place: ``k``/``v`` for
+attention, ``conv`` and ``h`` for Mamba, ``x_prev``, ``S`` and
+``cm_prev`` for RWKV-6.
 """
 
 from __future__ import annotations
@@ -27,9 +29,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-
-_NOT_PORTED = ("ROADMAP.md §1, 'MoE and SSM mixers': {what} is not ported to "
-               "repro_torch yet")
+from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 
 
 @dataclass(frozen=True)
@@ -38,22 +39,9 @@ class SubLayer:
     is_moe: bool
 
 
-def moe_layer_pattern(cfg: ModelConfig, layer_idx: int) -> bool:
-    e = cfg.moe
-    if e is None:
-        return False
-    if e.layer_pattern == "all":
-        return True
-    if e.layer_pattern == "all_but_first":
-        return layer_idx > 0
-    if e.layer_pattern == "every_2":
-        return layer_idx % 2 == 1
-    raise ValueError(e.layer_pattern)
-
-
 def layer_plan(cfg: ModelConfig) -> tuple[list[SubLayer], list[SubLayer], int]:
     """(prefix, period, n_periods)."""
-    seq = [SubLayer(cfg.layer_types[i], moe_layer_pattern(cfg, i))
+    seq = [SubLayer(cfg.layer_types[i], M.moe_layer_pattern(cfg, i))
            for i in range(cfg.n_layers)]
     # Smallest period wins; prefix breaks ties.
     best = None
@@ -79,49 +67,91 @@ def layer_plan(cfg: ModelConfig) -> tuple[list[SubLayer], list[SubLayer], int]:
 # one sub-layer
 # ---------------------------------------------------------------------------
 
-def _check_ported(sub: SubLayer) -> None:
-    if sub.mixer == "m":
-        raise NotImplementedError(_NOT_PORTED.format(what="the Mamba mixer"))
-    if sub.mixer == "r":
-        raise NotImplementedError(_NOT_PORTED.format(what="the RWKV-6 mixer"))
-    if sub.is_moe:
-        raise NotImplementedError(_NOT_PORTED.format(what="the MoE FFN"))
-
-
 class Block(nn.Module):
-    """One sub-layer: norm → mixer → residual, norm → FFN → residual."""
+    """One sub-layer: norm → mixer → residual, norm → FFN → residual.  The
+    mixer is ``attn``, ``mamba`` or ``rwkv`` and the FFN ``ffn``, ``moe``
+    or ``cmix``, as in the JAX parameter tree."""
 
     def __init__(self, cfg: ModelConfig, sub: SubLayer, device):
         super().__init__()
-        _check_ported(sub)
         self.norm1 = L.Norm(cfg.norm, cfg.d_model, device)
         self.norm2 = L.Norm(cfg.norm, cfg.d_model, device)
-        self.attn = A.Attention(cfg, device)
-        self.ffn = L.FFN(cfg.d_model, cfg.d_ff, cfg.act,
-                         getattr(torch, cfg.dtype), device)
+        if sub.mixer == "a":
+            self.attn = A.Attention(cfg, device)
+        elif sub.mixer == "m":
+            self.mamba = S.Mamba(cfg, device)
+        else:
+            self.rwkv = S.RWKV6(cfg, device)
+        if sub.mixer == "r":
+            self.cmix = S.RWKV6ChannelMix(cfg, device)
+        elif sub.is_moe:
+            self.moe = M.MoE(cfg, device)
+        else:
+            self.ffn = L.FFN(cfg.d_model, cfg.d_ff, cfg.act,
+                             getattr(torch, cfg.dtype), device)
 
 
 def init_sublayer_cache(cfg: ModelConfig, sub: SubLayer, batch: int,
                         max_len: int, device):
-    """Decode-time state for one sub-layer: its KV cache."""
-    _check_ported(sub)
+    """Decode-time state for one sub-layer."""
     dt = getattr(torch, cfg.dtype)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if sub.mixer == "a":
+        shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
+        return {"k": zeros(shape), "v": zeros(shape)}
+    if sub.mixer == "m":
+        di = cfg.ssm.expand * cfg.d_model
+        return {"conv": zeros((batch, cfg.ssm.d_conv - 1, di)),
+                "h": zeros((batch, di, cfg.ssm.d_state), torch.float32)}
+    hs = cfg.ssm.head_dim
+    H = cfg.d_model // hs
+    return {"x_prev": zeros((batch, cfg.d_model)),
+            "S": zeros((batch, H, hs, hs), torch.float32),
+            "cm_prev": zeros((batch, cfg.d_model))}
+
+
+def _store(cache: dict, **states) -> None:
+    """Write a mixer's new states into its cache, in place."""
+    for name, value in states.items():
+        cache[name].copy_(value)
 
 
 def apply_sublayer(p: Block, cfg: ModelConfig, x, positions, cache=None,
                    cache_index=None):
-    """returns (x, cache); the cache is updated in place.  A dense FFN has
-    no auxiliary loss, so unlike the JAX package there is none to return."""
+    """returns (x, cache, aux_loss); the cache is updated in place, and
+    aux_loss is None unless the FFN is an MoE (no zero tensor to add up
+    on the card for every other sub-layer)."""
+    aux = None
     h = L.norm(cfg.norm, p.norm1, x)
-    out, cache = A.attention(p.attn, cfg, h, positions, kv_cache=cache,
-                             cache_index=cache_index)
+    if hasattr(p, "attn"):
+        out, cache = A.attention(p.attn, cfg, h, positions, kv_cache=cache,
+                                 cache_index=cache_index)
+    elif hasattr(p, "mamba"):
+        state = (cache["conv"], cache["h"]) if cache is not None else None
+        out, (conv, hst) = S.mamba_mix(p.mamba, cfg, h, state)
+        if cache is not None:
+            _store(cache, conv=conv, h=hst)
+    else:
+        state = (cache["x_prev"], cache["S"]) if cache is not None else None
+        out, (xp, st) = S.rwkv6_mix(p.rwkv, cfg, h, state)
+        if cache is not None:
+            _store(cache, x_prev=xp, S=st)
     x = x + out
+
     h = L.norm(cfg.norm, p.norm2, x)
-    out = L.ffn(p.ffn, h, cfg.act, getattr(torch, cfg.dtype))
-    return x + out, cache
+    if hasattr(p, "cmix"):
+        out, cmp_ = S.rwkv6_channel_mix(
+            p.cmix, cfg, h, cache["cm_prev"] if cache is not None else None)
+        if cache is not None:
+            _store(cache, cm_prev=cmp_)
+    elif hasattr(p, "moe"):
+        out, aux = M.moe_ffn(p.moe, cfg, h)
+    else:
+        out = L.ffn(p.ffn, h, cfg.act, getattr(torch, cfg.dtype))
+    return x + out, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -167,26 +197,32 @@ def _remat_wrap(cfg: ModelConfig, fn):
 
 def apply_stack(params: Stack, cfg: ModelConfig, x, positions, cache=None,
                 cache_index=None):
-    """returns (x, cache, total_aux); the cache is updated in place and the
-    auxiliary loss of a dense stack is 0.  Periods are rematerialised as
-    ``cfg.remat`` says when gradients are on and there is no cache."""
+    """returns (x, cache, total_aux): the cache is updated in place, and
+    total_aux is the sum of the MoE auxiliary losses over the prefix and
+    the periods.  Periods are rematerialised as ``cfg.remat`` says when
+    gradients are on and there is no cache."""
     prefix, period, n_periods = layer_plan(cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(len(prefix)):
         c = cache["prefix"][i] if cache is not None else None
-        x, _ = apply_sublayer(params.prefix[i], cfg, x, positions, c,
-                              cache_index)
+        x, _, aux = apply_sublayer(params.prefix[i], cfg, x, positions, c,
+                                   cache_index)
+        if aux is not None:
+            aux_total = aux_total + aux
 
-    def period_body(x, blocks, pcache):
+    def period_body(x, aux_acc, blocks, pcache):
         for i in range(len(period)):
             c = pcache[f"sub{i}"] if pcache is not None else None
-            x, _ = apply_sublayer(blocks[f"sub{i}"], cfg, x, positions, c,
-                                  cache_index)
-        return x
+            x, _, aux = apply_sublayer(blocks[f"sub{i}"], cfg, x, positions,
+                                       c, cache_index)
+            if aux is not None:
+                aux_acc = aux_acc + aux
+        return x, aux_acc
 
     body = period_body
     if cache is None and torch.is_grad_enabled():
         body = _remat_wrap(cfg, period_body)
     for j in range(n_periods):
         pcache = cache["periods"][j] if cache is not None else None
-        x = body(x, params.periods[j], pcache)
-    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux_total = body(x, aux_total, params.periods[j], pcache)
+    return x, cache, aux_total

@@ -5,10 +5,12 @@ The JAX package keeps fp32 master parameters and casts them once per
 forward pass to the compute dtype; the gradient of a master is the
 cotangent of its working copy, cast up.  ``TrainState`` does the same
 arithmetic in PyTorch: ``params`` holds the fp32 masters, ``model`` the
-working copy (weight matrices in ``cfg.dtype``) that takes the gradients,
-and after each update the masters are cast into the working copy.  Where a
-parameter's working dtype is the master dtype (1-D parameters, and every
-parameter of an fp32 config) the master IS the working parameter.
+working copy (each parameter in its ``models.model.working_dtype``: weight
+matrices and a period's 1-D parameters in ``cfg.dtype``) that takes the
+gradients, and after each update the masters are cast into the working
+copy.  Where a parameter's working dtype is the master dtype (the prefix's
+1-D parameters, and every parameter of an fp32 config) the master IS the
+working parameter.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import LMModel, load_params, loss_fn
+from repro_torch.models.model import (LMModel, load_params, loss_fn,
+                                      working_dtype)
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          init_opt_state)
 
@@ -77,10 +80,10 @@ def init_train_state(cfg: ModelConfig, params: LMModel) -> TrainState:
     ...)``): a model in a narrower dtype gives masters rounded to it.  The
     working copy is ``params`` itself when it already holds ``cfg``'s
     storage dtypes, else a new model cast from the masters."""
-    pdt, dt = getattr(torch, cfg.param_dtype), getattr(torch, cfg.dtype)
+    pdt = getattr(torch, cfg.param_dtype)
     masters = {k: p.detach().to(pdt) for k, p in params.named_parameters()}
-    if all(p.dtype == (dt if p.ndim >= 2 else torch.float32)
-           for p in params.parameters()):
+    if all(p.dtype == working_dtype(cfg, k, p.ndim)
+           for k, p in params.named_parameters()):
         model = params
     else:
         model = load_params(masters, cfg, next(iter(masters.values())).device)
@@ -112,7 +115,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     def grads_of(model: LMModel, batch: dict):
         names, params = zip(*model.named_parameters())
         loss, metrics = loss_fn(model, cfg, batch)
-        grads = torch.autograd.grad(loss, params)
+        # A parameter the loss does not read (hubert's token embedding,
+        # RWKV's ``mu_x``) has a zero gradient, as under ``jax.grad``.
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             dict(zip(names, grads))
 

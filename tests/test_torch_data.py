@@ -107,10 +107,25 @@ def test_batch_must_split_over_processes(monkeypatch):
         _pipes("olmo-1b", 3, 8, 1, "xoshiro128p")
 
 
-def test_audio_frontend_is_not_ported():
-    cfg = load_config("hubert-xlarge", "smoke")
-    with pytest.raises(NotImplementedError, match="audio"):
-        TokenPipeline(cfg, ShapeConfig("t", 8, 2, "train"), device="cpu")
+@pytest.mark.parametrize("B,T,seed,kind", [(2, 16, 1, "xoshiro128p"),
+                                            (3, 33, 2 ** 31 - 1, "lcg")])
+def test_audio_batches_bit_equal_to_jax(B, T, seed, kind):
+    """hubert: frame embeddings from a third uniform draw, (u·2 − 1) in
+    bf16, and the token stream as per-frame labels."""
+    jp, tp = _pipes("hubert-xlarge", B, T, seed, kind)
+    for step in (0, 3):
+        want = jp.global_batch_at(step)
+        got = tp.global_batch_at(step)
+        assert set(got) == set(want) == {"embeds", "labels"}
+        assert got["embeds"].dtype == torch.bfloat16
+        assert tuple(got["embeds"].shape) == want["embeds"].shape == (
+            B, T, tp.cfg.d_model)
+        np.testing.assert_array_equal(
+            got["embeds"].view(torch.int16).numpy(),
+            np.asarray(want["embeds"]).view(np.int16))
+        np.testing.assert_array_equal(got["labels"].numpy(),
+                                      np.asarray(want["labels"]))
+    assert float(got["embeds"].float().min()) >= -1.0
 
 
 def test_card_is_the_default_device():

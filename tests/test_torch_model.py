@@ -1,7 +1,9 @@
 """The port's model stack on the CPU against the JAX package: layers,
-chunked attention, the whole forward pass and cached prefill + decode, on
-smoke configs in fp32 with the JAX package's own parameters carried over by
-``repro_torch.convert.params_from_jax``.  Tolerances: rtol 1e-5 / atol 1e-6
+chunked attention, the whole forward pass and cached prefill + decode for
+every decoder config (dense, MoE, Mamba hybrid, RWKV-6), the audio
+encoder's forward pass from frame embeddings, and the full-size parameter
+trees, on smoke configs in fp32 with the JAX package's own parameters
+carried over by ``repro_torch.convert.params_from_jax``.  Tolerances: rtol 1e-5 / atol 1e-6
 for one attention call, rtol 1e-4 / atol 1e-4 for whole-model logits, whose
 fp32 sums run in another order in the two frameworks."""
 
@@ -26,7 +28,9 @@ from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models.model import forward, init_params  # noqa: E402
 from repro_torch.serve import engine as tengine  # noqa: E402
 
-ARCHS = ["olmo-1b", "gemma-2b"]
+ARCHS = ["olmo-1b", "gemma-2b", "phi3-mini-3.8b", "qwen3-32b",
+         "qwen2-vl-72b", "deepseek-moe-16b", "grok-1-314b", "jamba-v0.1-52b",
+         "rwkv6-1.6b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -34,7 +38,8 @@ def both(request):
     """(jax cfg, jax params, port cfg, port params) for one smoke arch."""
     name = request.param
     jcfg = jax_load_config(name, "smoke")
-    jparams = jax_init_params(jcfg, jax.random.PRNGKey(1))
+    jparams = jax.jit(lambda k: jax_init_params(jcfg, k))(
+        jax.random.PRNGKey(1))
     cfg = load_config(name, "smoke")
     params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
     return jcfg, jparams, cfg, params
@@ -119,9 +124,30 @@ class TestForward:
     def test_logits_match_jax(self, both, mode):
         jcfg, jparams, cfg, params = both
         toks = _tokens(cfg, 2, 24)
-        want, _, _ = jax_forward(jparams, jcfg, {"tokens": jnp.asarray(toks)},
-                                 logits_mode=mode)
+        want, _, want_aux = jax.jit(lambda p, b: jax_forward(
+            p, jcfg, b, logits_mode=mode))(jparams,
+                                           {"tokens": jnp.asarray(toks)})
         got, _, aux = forward(params, cfg, {"tokens": torch.from_numpy(toks)},
+                              logits_mode=mode)
+        assert tuple(got.shape) == want.shape
+        assert (float(aux) == 0.0) == (cfg.moe is None)
+        _close(got, want)
+        _close(aux, want_aux, 1e-5, 1e-7)
+
+    @pytest.mark.parametrize("mode", ["all", "hidden"])
+    def test_audio_encoder_matches_jax(self, mode):
+        """hubert: frame embeddings replace the token embedding; no causal
+        mask, no rotary embedding, a per-frame head."""
+        jcfg = jax_load_config("hubert-xlarge", "smoke")
+        jparams = jax_init_params(jcfg, jax.random.PRNGKey(1))
+        cfg = load_config("hubert-xlarge", "smoke")
+        params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                                 "cpu")
+        e = np.random.default_rng(3).uniform(-1, 1, (2, 24, cfg.d_model))
+        e = e.astype(np.float32)
+        want, _, _ = jax_forward(jparams, jcfg, {"embeds": jnp.asarray(e)},
+                                 logits_mode=mode)
+        got, _, aux = forward(params, cfg, {"embeds": torch.from_numpy(e)},
                               logits_mode=mode)
         assert tuple(got.shape) == want.shape and float(aux) == 0.0
         _close(got, want)
@@ -188,20 +214,45 @@ class TestInit:
         assert float(w.abs().max()) <= 2 * cfg.d_ff ** -0.5 * 1.01
         assert abs(float(w.std()) / cfg.d_ff ** -0.5 - 0.88) < 0.05
 
-    def test_full_olmo_parameters_match_jax_tree(self):
-        """Same names (periods unstacked) and sizes as the JAX package's
-        full OLMo-1B tree, traced abstractly on both sides."""
+    @staticmethod
+    def _trees(jcfg, cfg):
+        """(the JAX tree's shapes by port name, the port's shapes), traced
+        abstractly on both sides."""
         from repro_torch.convert import state_dict_from_jax
         from repro_torch.models.model import LMModel
         jtree = jax.eval_shape(lambda: jax_init_params(
-            jax_load_config("olmo-1b", "full"), jax.random.PRNGKey(0)))
+            jcfg, jax.random.PRNGKey(0)))
         zeros = jax.tree.map(  # zero-stride arrays: no memory
             lambda s: np.broadcast_to(np.float32(0), s.shape), jtree)
         jshapes = {k: v.shape for k, v in state_dict_from_jax(zeros).items()}
-        model = LMModel(load_config("olmo-1b", "full"), "meta")
-        shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+        model = LMModel(cfg, "meta")
+        return jshapes, {k: tuple(p.shape) for k, p in
+                         model.named_parameters()}
+
+    def test_full_olmo_parameters_match_jax_tree(self):
+        """Same names (periods unstacked) and sizes as the JAX package's
+        full OLMo-1B tree."""
+        jshapes, shapes = self._trees(jax_load_config("olmo-1b", "full"),
+                                      load_config("olmo-1b", "full"))
         assert shapes == jshapes
         assert sum(map(np.prod, shapes.values())) == 1_176_764_416
+
+    @pytest.mark.parametrize("arch,n_layers,count", [
+        ("deepseek-moe-16b", None, 16_375_728_128),
+        ("jamba-v0.1-52b", 8, 13_295_235_072),     # one period of eight
+        ("rwkv6-1.6b", None, 1_584_140_288),
+        ("hubert-xlarge", None, 945_256_960)])
+    def test_full_parameters_match_jax_tree(self, arch, n_layers, count):
+        """The new families at full width: the expert banks, the stacked
+        periods of 2-D and 3-D leaves, the SSM parameters; Jamba cut to one
+        period of eight layers as the card runs it."""
+        jcfg, cfg = jax_load_config(arch, "full"), load_config(arch, "full")
+        if n_layers:
+            kw = dict(n_layers=n_layers, layer_types="mmmmammm")
+            jcfg, cfg = jcfg.replace(**kw), cfg.replace(**kw)
+        jshapes, shapes = self._trees(jcfg, cfg)
+        assert shapes == jshapes
+        assert sum(map(np.prod, shapes.values())) == count
 
     def test_cuda_default_raises_without_a_card(self):
         if torch.cuda.is_available():
@@ -209,9 +260,3 @@ class TestInit:
         cfg = load_config("olmo-1b", "smoke")
         with pytest.raises(RuntimeError, match="device='cpu'"):
             init_params(cfg, torch.Generator())
-
-    @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-v0.1-52b",
-                                      "deepseek-moe-16b"])
-    def test_unported_mixers_name_the_roadmap(self, arch):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_params(load_config(arch, "smoke"), torch.Generator(), "cpu")

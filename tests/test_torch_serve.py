@@ -1,6 +1,6 @@
 """The port's serving path on the CPU: ``ServeEngine.generate`` against the
-JAX package's engine on olmo-1b smoke (greedy and sampled tokens
-identical), the engine's ValueErrors and ``n_steps=0`` as tests/test_serve.py
+JAX package's engine on olmo-1b smoke and on the MoE, Mamba-hybrid and
+RWKV-6 smoke configs (greedy and sampled tokens identical), the engine's ValueErrors and ``n_steps=0`` as tests/test_serve.py
 pins them for JAX, the ``launch.serve`` entry point, and the rule that the
 port imports neither JAX nor the JAX package."""
 
@@ -62,6 +62,27 @@ class TestGenerateMatchesJax:
         assert got.logits.shape == (2, 12, cfg.vocab_size)
         assert bool(torch.isfinite(got.logits).all())
         assert got.prefill_s > 0 and got.decode_s > 0
+
+    @pytest.mark.parametrize("kw", [dict(), dict(temperature=1.0, seed=1)],
+                             ids=["greedy", "sampled"])
+    @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "jamba-v0.1-52b",
+                                      "rwkv6-1.6b"])
+    def test_family_tokens_identical(self, arch, kw):
+        """The KV, Mamba (conv, h) and RWKV (x_prev, S, cm_prev) caches
+        carried across a prefill and 10 decode steps."""
+        jcfg = jax_load_config(arch, "smoke")
+        jparams = jax_init_params(jcfg, jax.random.PRNGKey(2))
+        cfg = load_config(arch, "smoke")
+        params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                                 "cpu")
+        prompts = np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (2, 8)).astype(np.int32)
+        want = JaxServeEngine(jcfg, jparams, max_len=24, batch=2,
+                              **kw).generate(prompts, 10)
+        got = ServeEngine(cfg, params, max_len=24, batch=2, device="cpu",
+                          **kw).generate(prompts, 10)
+        np.testing.assert_array_equal(got.tokens, want.tokens)
+        assert bool(torch.isfinite(got.logits).all())
 
     def test_greedy_tokens_are_the_argmax_of_their_logits(self, olmo):
         _, _, cfg, params = olmo
@@ -150,7 +171,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                        "'jaxlib')) or m == 'repro' or m.startswith('repro.')")
     for m in ("train.optimizer", "train.train_step", "train.checkpoint",
               "train.fault", "data.pipeline", "obs.metrics", "obs.record",
-              "launch.train"):
+              "launch.train", "models.moe", "models.ssm"):
         assert f"repro_torch.{m}" in mods, m
 
 

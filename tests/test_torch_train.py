@@ -1,10 +1,13 @@
 """The port's training path on the CPU against the JAX package, on olmo-1b
 smoke (and gemma-2b smoke where norm gains matter): ``loss_fn`` and every
 parameter's gradient against ``jax.value_and_grad`` through the JAX
-reference path, with and without rematerialisation; the softmax and exp
-``autograd.Function``s against ``jax.vjp`` of the reference; ``adamw_update``
-and ``lr_at``; three steps of ``make_train_step`` (1 and 2 microbatches, fp32
-and bf16 compute) against the JAX loss trajectory; the ``NotImplementedError``s
+reference path, with and without rematerialisation, also for the MoE
+(deepseek: the auxiliary loss enters the loss), Mamba-hybrid (jamba),
+RWKV-6 and audio-encoder (hubert: per-frame labels) families; the softmax
+and exp ``autograd.Function``s against ``jax.vjp`` of the reference;
+``adamw_update`` and ``lr_at``; three steps of ``make_train_step`` (1 and 2
+microbatches, fp32 and bf16 compute; jamba in fp32) against the JAX loss
+trajectory; the ``NotImplementedError``s
 of what is not ported; the ``launch.train`` entry point.
 
 Tolerances: loss rtol 1e-5, gradients rtol 1e-4 / atol 1e-6 (fp32 sums in
@@ -147,6 +150,68 @@ class TestLossAndGrads:
                                         _np(jparams), toks)
         _close(tl, jl, 1e-5, 0)
         _close(tl, gather, 1e-6, 0)
+
+
+def _family_batch(cfg, B, T, seed):
+    """The batch each family trains on, as numpy: tokens, or frame
+    embeddings and labels for the audio encoder."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio":
+        return {"embeds": rng.uniform(-1, 1, (B, T, cfg.d_model)).astype(
+                    np.float32),
+                "labels": rng.integers(0, cfg.vocab_size, (B, T)).astype(
+                    np.int32)}
+    return {"tokens": _tokens(cfg, B, T, seed)}
+
+
+class TestFamilies:
+    """Loss, metrics and gradients of the new families' smoke configs.  The
+    token embedding of hubert and RWKV's ``mu_x`` are read by no output:
+    their gradients are 0 in JAX and unused in PyTorch."""
+
+    @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "jamba-v0.1-52b",
+                                      "rwkv6-1.6b", "hubert-xlarge"])
+    def test_loss_and_grads_match_jax(self, arch):
+        jcfg = jax_load_config(arch, "smoke")
+        cfg = load_config(arch, "smoke")
+        jparams = jax.jit(lambda k: jmodel.init_params(jcfg, k))(
+            jax.random.PRNGKey(4))
+        batch = _family_batch(cfg, 2, 21, seed=6)
+        (jl, jm), jg = jax.jit(jax.value_and_grad(
+            lambda p, b: jmodel.loss_fn(p, jcfg, b), has_aux=True))(
+                jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+        jg = state_dict_from_jax(_np(jg))
+        model = params_from_jax(_np(jparams), cfg, "cpu")
+        names, params = zip(*model.named_parameters())
+        for p in params:
+            p.requires_grad_(True)
+        loss, tm = tmodel.loss_fn(model, cfg, {k: torch.from_numpy(v)
+                                               for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        _close(float(loss.detach()), float(jl), 1e-5, 0)
+        for k in ("nll", "zloss", "ppl", "aux"):
+            _close(tm[k].detach(), jm[k], 1e-5, 1e-7, k)
+        assert (float(jm["aux"]) > 0) == (cfg.moe is not None)
+        assert set(names) == set(jg)
+        for name, g in zip(names, grads):
+            if g is None:
+                assert not jg[name].any(), name
+                continue
+            _close(g, jg[name], 1e-4, 1e-6, name)
+
+    def test_encoder_step_zeroes_the_unread_embedding(self):
+        """``make_train_step`` gives a parameter that no output reads a zero
+        gradient, as ``jax.grad`` does, instead of failing."""
+        cfg = load_config("hubert-xlarge", "smoke")
+        state = init_train_state(cfg, tmodel.init_params(
+            cfg, torch.Generator().manual_seed(0), "cpu"))
+        before = state.params["embed.table"].clone()
+        fn = make_train_step(cfg, topt.AdamWConfig(weight_decay=0.0))
+        batch = {k: torch.from_numpy(v) for k, v in
+                 _family_batch(cfg, 2, 9, seed=1).items()}
+        _, m = fn(state, batch)
+        assert np.isfinite(float(m["loss"]))
+        assert torch.equal(state.params["embed.table"], before)
 
 
 class TestKernelGradients:
@@ -338,6 +403,16 @@ class TestTrainStep:
         master = state.params["stack.periods.0.sub0.attn.q.w"]
         assert w.dtype == torch.bfloat16 and master.dtype == torch.float32
         assert torch.equal(w, master.to(torch.bfloat16))
+
+    def test_jamba_trajectory_matches_jax(self):
+        """Mamba layers (their checkpointed scans), one attention layer and
+        MoE on every other layer, three steps."""
+        jcfg = jax_load_config("jamba-v0.1-52b", "smoke")
+        want, got, _, _ = _trajectories(
+            jcfg, load_config("jamba-v0.1-52b", "smoke"), 1, B=2)
+        for s, (w, g) in enumerate(zip(want, got)):
+            for k in ("loss", "nll", "aux", "grad_norm", "lr"):
+                _close(g[k], w[k], 1e-4, 0, f"step {s} {k}")
 
     def test_masters_of_fp32_configs_are_the_parameters(self, olmo):
         _, _, cfg = olmo
