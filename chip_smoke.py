@@ -114,7 +114,24 @@ and prints no result line):
        and sampled, identical tokens); deepseek and jamba train 3 steps as
        (g) trains olmo (one state, identical batches, losses rtol 1e-4).
    The JSON line's ``launches_families`` are this phase's.
-8. The last line: ``{"ok": true, "device": {...}}``.
+8. The analytic model (``analytic_phase``), which prints one ``analytic:``
+   JSON line with its host wall times beside the card's name and power limit:
+   (a) ``check_counts`` and, for Table I's six kernels, ``evaluate_kernel``
+       and ``evaluate_energy``: the geomean speedup, peak speedup and IPC,
+       geomean IPC gain, geomean and max power ratio, geomean and peak
+       energy saving, each within the JAX package's tolerance of
+       ``core.analytics.PAPER_HEADLINE`` (rel 0.04 / 0.05; abs 0.04, 0.05,
+       0.06 on the power and energy aggregates), expf the peak of both;
+   (b) ``api.evaluate`` of every simulatable spec on ``Target()`` and an
+       8-core homogeneous target from cleared caches and again warm (equal
+       Reports), and the 1-core Report equal to the single-PE numbers;
+   (c) ``kernels.expf.exp_phase_plan`` over 262,144 fp32 values on the
+       card (block 292, the Table-I rule): ``core.copift.execute``
+       pipelined and serial each equal ``exp_plain`` bit for bit and the
+       CUDA exp kernel (``ops.exp``, counted from 0) within rtol 2e-6;
+   (d) ``analyze(exp_plain, x)`` on the card's tensor equals the CPU's.
+   The JSON line's ``launches_analytic`` (exp) is (c)'s count.
+9. The last line: ``{"ok": true, "device": {...}}``.
 
 Phase 2 also times an empty kernel at the uniform kernel's grids
 (``tools/launch_floor.py``, built beside the kernels): the card's floor
@@ -1547,6 +1564,169 @@ def families_phase(torch, smi) -> dict:
     return total, paths
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the analytic model
+# ---------------------------------------------------------------------------
+
+#: The JAX package's own tolerances on the paper's headline
+#: (``tests/test_timing_energy.py``): ("rel" | "abs", tolerance).
+HEADLINE_TOL = {"geomean_speedup": ("rel", 0.04),
+                "peak_speedup": ("rel", 0.05), "peak_ipc": ("rel", 0.05),
+                "geomean_ipc_gain": ("rel", 0.04),
+                "geomean_power_ratio": ("abs", 0.04),
+                "max_power_ratio": ("abs", 0.05),
+                "geomean_energy_saving": ("abs", 0.06),
+                "peak_energy_saving": ("rel", 0.05)}
+#: The exp phase plan's problem: 262,144 fp32 values.
+PLAN_ELEMENTS = 1 << 18
+
+
+def paper_headline() -> dict:
+    """(a) Table I's kernels through the port's timing and energy models:
+    ``check_counts`` holds, and the headline aggregates meet the paper's
+    within the JAX package's tolerances."""
+    from repro_torch.core import PAPER_HEADLINE, TABLE_I, geomean
+    from repro_torch.core.energy import evaluate_energy
+    from repro_torch.core.kernels_isa import (KERNELS, baseline_trace,
+                                              check_counts, copift_schedule)
+    from repro_torch.core.timing import evaluate_kernel
+
+    t0 = time.perf_counter()
+    bad = [k for k, v in check_counts().items() if not v["ok"]]
+    if bad:
+        _fail(f"analytic (a): Table-I instruction counts differ for {bad}")
+    res = {k: evaluate_kernel(k, baseline_trace(k), copift_schedule(k),
+                              TABLE_I[k].max_block) for k in KERNELS}
+    en = {k: evaluate_energy(k) for k in KERNELS}
+    got = dict(
+        geomean_speedup=geomean([r.speedup for r in res.values()]),
+        peak_speedup=max(r.speedup for r in res.values()),
+        peak_ipc=max(r.ipc_copift for r in res.values()),
+        geomean_ipc_gain=geomean([r.ipc_gain for r in res.values()]),
+        geomean_power_ratio=geomean([e.power_ratio for e in en.values()]),
+        max_power_ratio=max(e.power_ratio for e in en.values()),
+        geomean_energy_saving=geomean([e.energy_saving
+                                       for e in en.values()]),
+        peak_energy_saving=max(e.energy_saving for e in en.values()))
+    for key, (kind, tol) in HEADLINE_TOL.items():
+        want = PAPER_HEADLINE[key]
+        err = abs(got[key] - want) / (want if kind == "rel" else 1.0)
+        if not err <= tol:
+            _fail(f"analytic (a): {key} {got[key]} against the paper's "
+                  f"{want} ({kind} {tol})")
+    for key, pick in (("peak_speedup", lambda k: res[k].speedup),
+                      ("peak_energy_saving", lambda k: en[k].energy_saving)):
+        if max(KERNELS, key=pick) != "expf":
+            _fail(f"analytic (a): {key} is not expf's")
+    return dict(headline=got, kernels=len(KERNELS),
+                seconds=time.perf_counter() - t0)
+
+
+def evaluate_sweep() -> dict:
+    """(b) ``api.evaluate`` of every simulatable spec on ``Target()`` and an
+    8-core homogeneous target, from cleared caches (cold) and again (warm):
+    the same Reports both times, and the 1-core Report equal to the
+    single-PE timing and energy numbers."""
+    from repro_torch import api
+    from repro_torch.core import TABLE_I, evaluate_kernel
+    from repro_torch.core.energy import evaluate_energy
+    from repro_torch.core.kernels_isa import baseline_trace, copift_schedule
+    from repro_torch.perf import clear_all
+
+    names = [s.name for s in api.specs() if s.simulatable]
+    targets = {"Target()": api.Target(),
+               "homogeneous(8)": api.Target.homogeneous(n_cores=8)}
+
+    def run():
+        t0 = time.perf_counter()
+        out = {(n, t): api.evaluate(n, tgt) for n in names
+               for t, tgt in targets.items()}
+        return out, time.perf_counter() - t0
+
+    clear_all()
+    cold, cold_s = run()
+    warm, warm_s = run()
+    if cold != warm:
+        _fail("analytic (b): warm Reports differ from cold ones")
+    for n in names:
+        isa = api.kernel(n).isa_name
+        pe = evaluate_kernel(isa, baseline_trace(isa), copift_schedule(isa),
+                             TABLE_I[isa].max_block)
+        e = evaluate_energy(isa)
+        r = api.evaluate(n, api.Target.single_pe())
+        if (r.speedup, r.ipc_copift, r.ipc_base, r.cycles_copift,
+                r.cycles_base, r.energy_saving, r.power_ratio) != (
+                pe.speedup, pe.ipc_copift, pe.ipc_base, pe.cycles_copift,
+                pe.cycles_base, e.energy_saving, e.power_ratio):
+            _fail(f"analytic (b): {n}'s 1-core Report is not the single-PE "
+                  f"result")
+    eight = {n: warm[(n, "homogeneous(8)")] for n in names}
+    return dict(specs=len(names), evaluations=len(cold), cold_s=cold_s,
+                warm_s=warm_s,
+                speedup_8_cores={n: r.speedup for n, r in eight.items()})
+
+
+def plan_on_card(torch, gen) -> dict:
+    """(c) The exp kernel's three phases as a COPIFT plan over 262,144 fp32
+    values on the card, at the Table-I block rule's block: pipelined and
+    serial equal ``exp_plain`` bit for bit and the CUDA exp kernel (counted
+    from 0 just before) within exp's gate.  (d) ``analyze(exp_plain)`` on the
+    card's tensor gives the CPU's Analysis."""
+    from repro_torch.core import analyze, execute
+    from repro_torch.kernels import expf, ops
+
+    x = torch.empty(PLAN_ELEMENTS, device="cuda").uniform_(
+        -110.0, 95.0, generator=gen)
+    x[:5] = torch.tensor([float("inf"), float("-inf"), 88.5, -87.5, 0.0])
+    plan = expf.exp_phase_plan(x.numel())
+    want = expf.exp_plain(x)
+    walls = {}
+    for pipelined in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = execute(plan, {"x": x, "y": torch.empty_like(x)},
+                      pipelined=pipelined)["y"]
+        torch.cuda.synchronize()
+        walls["pipelined" if pipelined else "serial"] = \
+            time.perf_counter() - t0
+        if got.device.type != "cuda" or not torch.equal(got, want):
+            _fail(f"analytic (c): execute(pipelined={pipelined}) is not "
+                  f"exp_plain bit for bit")
+    expf.exp_cuda.launches = 0
+    with torch.no_grad():
+        kernel = ops.exp(x, impl="cuda")
+    torch.cuda.synchronize()
+    launches = expf.exp_cuda.launches
+    if launches < 1:
+        _fail("analytic (c): the exp kernel was not launched")
+    torch.testing.assert_close(got, kernel, rtol=2e-6, atol=1e-30,
+                               equal_nan=True)
+    on_card = analyze(expf.exp_plain, x)
+    on_cpu = analyze(expf.exp_plain, x.cpu())
+    if on_card != on_cpu:
+        _fail(f"analytic (d): {on_card} on the card, {on_cpu} on the CPU")
+    return dict(elements=x.numel(), block=plan.block,
+                n_blocks=plan.pipeline.n_blocks, buffers=plan.buffers,
+                wall_s=walls, exp_launches=launches,
+                max_abs_err_vs_kernel=float(torch.where(
+                    got == kernel, 0.0, (got - kernel).abs()).max()),
+                analysis=dict(phases=[d.name for d in on_card.phase_domains],
+                              n_int=on_card.n_int, n_fp=on_card.n_fp,
+                              n_mem=on_card.n_mem,
+                              cut_edges=on_card.n_cut_edges))
+
+
+def analytic_phase(torch, smi) -> int:
+    """Phase 8; returns the exp kernel's launches in (c)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = dict(a=paper_headline(), b=evaluate_sweep(),
+               c=plan_on_card(torch, gen), card=smi)
+    out["phase_s"] = time.perf_counter() - t0
+    print("analytic:", json.dumps(out))
+    return out["c"]["exp_launches"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1582,11 +1762,14 @@ def main() -> int:
     facade, facade_paths = check_facade(torch, gen)
     training = train_phase(torch, smi)
     families, families_paths = families_phase(torch, smi)
+    analytic_exp = analytic_phase(torch, smi)
     for e in entries:
         e["launches_training"] = training[e["name"]]
         e["launches_families"] = families[e["name"]]
         if e["name"] in families_paths:
             e["launches_families_by_path"] = families_paths[e["name"]]
+        if e["name"] == "exp":
+            e["launches_analytic"] = analytic_exp
         phase = "facade" if e["name"] in ("logf", "montecarlo") else "serving"
         counts, paths = ((facade, facade_paths) if phase == "facade"
                          else (serving, serving_paths))

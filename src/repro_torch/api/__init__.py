@@ -1,16 +1,42 @@
 """``repro_torch.api`` — the port's public front door, as ``repro.api``.
 
-This slice ports the kernel half of the facade: :class:`KernelSpec` and
-its registry (``kernel``, ``kernels``, ``specs``, ``register_kernel``)
-and the scoped :func:`config`.  ``kernel(name).run(...)`` reaches the
-port's entry points in ``kernels.ops``, which launch the CUDA kernels on
-the card.  ``evaluate``, ``Target``, ``Tuner`` and ``Report`` come with the
-analytic model (ROADMAP §1 item 3).
+* :class:`KernelSpec` — *what* runs: one registry object per kernel binding
+  its ISA schedule, tunable workload, entry point and plain oracle
+  (``kernel("softmax")``; ``register_kernel`` for user kernels).
+  ``kernel(name).run(...)`` reaches the port's entry points in
+  ``kernels.ops``, which launch the CUDA kernels on the card.
+* :class:`Target` — *where* it runs in the analytic model: cluster shape x
+  DVFS point(s) x scheduling strategy x power cap.
+* :class:`Report` — *what happened*: the one result dataclass
+  :func:`evaluate` returns.
+
+Plus the verbs :func:`evaluate`, :func:`sweep`, :func:`compare_strategies`,
+:func:`headline` and :func:`config`.  Every ``Report`` equals the JAX
+package's bit for bit.  ``Tuner`` and ``default_tuner`` (ROADMAP §1 item
+3d) and the fault model (3e) are not ported yet.
 """
 
+from repro_torch.api.evaluate import (compare_strategies, evaluate, headline,
+                                      sweep)
 from repro_torch.api.registry import (KernelSpec, kernel, kernels,
                                       register_kernel, specs)
+from repro_torch.api.report import Report, ReportMetrics
 from repro_torch.api.runtime import config
+from repro_torch.api.target import Target
 
-__all__ = ["KernelSpec", "kernel", "kernels", "register_kernel", "specs",
-           "config"]
+# Re-exported building blocks: the static cluster/system vocabulary a
+# Target is built from.
+from repro_torch.cluster.topology import (NOMINAL_POINT, OPERATING_POINTS,
+                                          SNITCH_CLUSTER, ClusterConfig,
+                                          DvfsIsland, OperatingPoint,
+                                          parse_islands)
+from repro_torch.system.topology import SystemConfig, parse_system
+
+__all__ = [
+    "KernelSpec", "kernel", "kernels", "register_kernel", "specs",
+    "Target", "Report", "ReportMetrics",
+    "evaluate", "sweep", "compare_strategies", "headline", "config",
+    "NOMINAL_POINT", "OPERATING_POINTS", "SNITCH_CLUSTER", "ClusterConfig",
+    "DvfsIsland", "OperatingPoint", "parse_islands",
+    "SystemConfig", "parse_system",
+]

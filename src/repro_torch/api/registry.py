@@ -8,11 +8,12 @@ names (``"montecarlo"`` → ``pi_xoshiro128p``) to the same spec.  Names,
 aliases and documentation equal the JAX package's; ``op`` and
 ``reference`` point into ``repro_torch.kernels``.
 
-The analytic model behind ``schedule``, ``baseline_trace`` and the tunable
-workloads is not ported yet (ROADMAP §1 item 3): those raise
-``NotImplementedError`` where the JAX package would answer.  The spec's
-callables are dotted references resolved at first use, so importing this
-module imports no kernel.
+``schedule`` and ``baseline_trace`` answer from the port's analytic model
+(``core.kernels_isa``).  The tuner's workloads are not ported yet (ROADMAP
+§1 item 3d): ``get_workload``, and so ``max_block`` of a tuner-only spec,
+raise ``NotImplementedError`` where the JAX package would answer.  The
+spec's callables are dotted references resolved at first use, so importing
+this module imports no kernel.
 """
 
 from __future__ import annotations
@@ -21,12 +22,10 @@ import importlib
 from dataclasses import dataclass, field
 
 from repro_torch.core.analytics import TABLE_I
+from repro_torch.core.kernels_isa import KERNELS as ISA_KERNELS
 
-#: The kernels of the analytic model's ISA registry.
-ISA_KERNELS = list(TABLE_I)
-
-_NOT_PORTED = ("the analytic Snitch model (core.kernels_isa, tune.workloads) "
-               "is not ported yet: ROADMAP §1 item 3")
+_NOT_PORTED = ("the tuner's workloads (tune.workloads) are not ported yet: "
+               "ROADMAP §1 item 3d")
 
 
 def _resolve_ref(ref: str):
@@ -79,7 +78,7 @@ class KernelSpec:
     @property
     def max_block(self) -> int:
         """Step-4 block-size cap: Table I for ISA kernels, the workload's
-        derivation otherwise (not ported yet)."""
+        derivation otherwise (which waits for the tuner)."""
         if self.isa_name is not None:
             return TABLE_I[self.isa_name].max_block
         return self.get_workload().max_block
@@ -96,20 +95,22 @@ class KernelSpec:
         return TABLE_I[self.isa_name]
 
     def schedule(self):
-        """The COPIFT schedule: not ported yet."""
-        if self.isa_name is None:
-            self.get_workload()          # KeyError for an untunable spec
-        raise NotImplementedError(f"{self.name}.schedule(): {_NOT_PORTED}")
+        """The COPIFT ``CopiftSchedule`` (ISA view when available, else the
+        workload's synthetic schedule, which waits for the tuner)."""
+        if self.isa_name is not None:
+            from repro_torch.core.kernels_isa import copift_schedule
+            return copift_schedule(self.isa_name)
+        return self.get_workload().schedule()
 
     def baseline_trace(self):
-        """The RV32G baseline trace of a simulatable kernel: not ported
-        yet."""
+        """The RV32G baseline ``KernelTrace`` (ISA view) — what the
+        single-issue simulator and the Table-I analytics consume."""
         if self.isa_name is None:
             raise ValueError(f"kernel {self.name!r} has no ISA view; "
                              f"simulatable kernels: "
                              f"{[s.name for s in specs() if s.simulatable]}")
-        raise NotImplementedError(
-            f"{self.name}.baseline_trace(): {_NOT_PORTED}")
+        from repro_torch.core.kernels_isa import baseline_trace
+        return baseline_trace(self.isa_name)
 
     def get_workload(self):
         """The tuner's workload.  Raises ``KeyError`` for untunable kernels,

@@ -4,7 +4,9 @@ PyTorch version.
 The kernel replaces the JAX package's ``repro/kernels/expf.py:_exp_kernel``.
 ``exp_phases`` is the plain version of the device function in
 ``csrc/copift_exp.cuh``, which the softmax kernel shares; it keeps the
-kernel's phase order so that the two agree to fp32 rounding.  ``exp_plan``
+kernel's phase order so that the two agree to fp32 rounding.
+``exp_phase_plan`` gives the same three phases to the COPIFT planner
+(``core.copift``).  ``exp_plan``
 picks the kernel's vector or scalar path by alignment;
 ``exp_cuda.path_launches`` counts the launches of each.  ``ExpFn`` gives
 the exp a gradient: its forward is the kernel (or, on the CPU, the plain
@@ -32,16 +34,29 @@ def exp_phases(x: torch.Tensor, clamp_hi: bool) -> torch.Tensor:
     moves, so the result is the kernel's, and autograd through this version
     stays finite at masked scores (an unclamped ``-inf`` makes ``r`` NaN,
     whose gradient the select would multiply by 0)."""
+    kd, r = exp_phase0(x)
+    return exp_phase2(x, r, exp_phase1(kd), clamp_hi)
+
+
+def exp_phase0(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """FP phase 0: z, round-to-nearest kd, Cody–Waite remainder r."""
     xc = x.clamp(-104.0, 89.0)
-    # --- FP phase 0: z, round-to-nearest kd, Cody–Waite remainder r.
     z = xc * _LOG2E
     kd = torch.round(z)               # half to even, as jnp.round and rintf
     r = (xc - kd * _LN2_HI) - kd * _LN2_LO
-    # --- INT phase 1: 2^kd in the exponent field; clamping before the
-    # conversion keeps it in the exponent's range.
+    return kd, r
+
+
+def exp_phase1(kd: torch.Tensor) -> torch.Tensor:
+    """INT phase 1: 2^kd in the exponent field; clamping before the
+    conversion keeps it in the exponent's range."""
     ki = kd.clamp(-126.0, 127.0).to(torch.int32)
-    s = ((ki + 127) << 23).view(torch.float32)
-    # --- FP phase 2: Horner polynomial and scale.
+    return ((ki + 127) << 23).view(torch.float32)
+
+
+def exp_phase2(x: torch.Tensor, r: torch.Tensor, s: torch.Tensor,
+               clamp_hi: bool) -> torch.Tensor:
+    """FP phase 2: Horner polynomial, scale and the selects on ``x``."""
     p = torch.full_like(r, _EXP2_POLY[0])
     for c in _EXP2_POLY[1:]:
         p = p * r + c
@@ -50,6 +65,30 @@ def exp_phases(x: torch.Tensor, clamp_hi: bool) -> torch.Tensor:
         y = torch.where(x > 88.0, math.inf, y)
     # Masked scores leave y NaN; this select, kept last, makes them 0.
     return torch.where(x < -87.0, 0.0, y)
+
+
+def exp_phase_plan(n_elements: int):
+    """The exp kernel's phases as a COPIFT plan over ``n_elements`` values
+    (``core.copift``): FP phase 0 writes ``kd`` and ``r``, INT phase 1 reads
+    ``kd`` and writes ``s``, FP phase 2 reads ``r`` and ``s`` and, as an
+    extern, ``x``.  The block is the Table-I rule's: the largest whose
+    buffer replicas fit the scratch budget.  ``core.copift.execute`` of the
+    plan on ``{"x": x, "y": ...}`` gives ``exp_plain(x)`` bit for bit."""
+    from repro_torch.core.copift import PhaseDef, make_plan
+    from repro_torch.core.isa import Domain
+
+    def fp0(x):
+        kd, r = exp_phase0(x)
+        return {"kd": kd, "r": r}
+
+    return make_plan("expf", [
+        PhaseDef(fp0, Domain.FP, writes=("kd", "r"), extern_reads=("x",)),
+        PhaseDef(lambda kd: {"s": exp_phase1(kd)}, Domain.INT,
+                 reads=("kd",), writes=("s",)),
+        PhaseDef(lambda r, s, x: {"y": exp_phase2(x, r, s, True)},
+                 Domain.FP, reads=("r", "s"), extern_reads=("x",),
+                 extern_writes=("y",)),
+    ], n_elements=n_elements)
 
 
 def exp_plain(x: torch.Tensor) -> torch.Tensor:

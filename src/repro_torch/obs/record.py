@@ -2,9 +2,9 @@
 
 A self-standing copy of the JAX package's ``repro.obs.record`` (which
 imports only the standard library), so that the port needs nothing of
-``repro``.  Its module switch ``_HOOKS_ENABLED`` gates the metrics registry
-(``obs.metrics``); the recorder itself waits for the analytic timing model
-that feeds it (ROADMAP.md §1 item 3).
+``repro``.  The discrete-event simulator in ``core.timing`` and
+``api.evaluate`` feed it; its module switch ``_HOOKS_ENABLED`` also gates
+the metrics registry (``obs.metrics``).
 
 From the original:
 
