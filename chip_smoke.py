@@ -36,6 +36,13 @@ and prints no result line):
    every segment count S of Monte Carlo's segment path
    (``tools/mc_segments.py``).  Phase 7's shapes are among the cases:
    uniform at 10,485,760, exp at 32 M and 32 K, softmax at 32 x 8192.
+   The tilings (``check_tilings``): exp, logf and uniform at 16 M and
+   softmax at 8192 x 161 (warp path) at ``block_rows`` = default / 2,
+   default and 2 x default (64 rows for the three, 8 for softmax): the
+   default launch equal to the launch from before tilings (256 threads;
+   exp's and logf's chunk 512 float4s), each launch counted at its plan's
+   block size, each output bit for bit the default's; device ms and threads
+   printed (``tiling:`` lines).
    One JSON line ``{"kernels": [...]}`` at the end.
 3. A reference check: the olmo-1b smoke model on the card (kernels) against
    the same parameters on the CPU (plain versions).
@@ -131,7 +138,32 @@ and prints no result line):
        CUDA exp kernel (``ops.exp``, counted from 0) within rtol 2e-6;
    (d) ``analyze(exp_plain, x)`` on the card's tensor equals the CPU's.
    The JSON line's ``launches_analytic`` (exp) is (c)'s count.
-9. The last line: ``{"ok": true, "device": {...}}``.
+9. The tuner (``tune_phase``), with the port's tune cache in a temporary
+   directory; prints its wall time:
+   (a) ``Tuner(Target.homogeneous(power_cap_mw=250))``: ``plan``, ``block``
+       and ``operating_point(heterogeneous=True, per_island_blocks=True)``
+       of the five workloads from an empty cache, then warm (equal
+       results; host wall times printed); ``kernels.ops._tuned_block_rows``
+       gives the JAX package's 64, 32, 32, 8 (expf, logf, prng, softmax);
+   (b) ``measure_candidates`` on the card for the five workloads at the 5
+       blocks of ``block_ladder(w.max_block)``: a finite time for every
+       candidate, the block size each launched, every output equal to the
+       default tiling's (Monte Carlo's to the plain version at the same
+       ``n_blocks``); then ``tune(w, measure_top_k=3)`` for softmax and
+       expf;
+   (c) OLMo-1B at full width with phase 4's parameters and prompts, batch
+       4, prompt 128, 32 tokens, greedy and sampled: ``ServeEngine``
+       without and with ``autotune=True, power_cap_mw=250``; identical
+       tokens (greedy also phase 4 (a)'s); the tuned runs launch uniform at
+       128 threads and softmax's warp path at 8 rows a block;
+       ``operating_plan`` printed; ``close()`` restores the setting; decode
+       ms per token with and without, beside the card's name and power
+       limit (no claim made);
+   (d) ``launch.train.main`` on the olmo-1b smoke model on the card, 3
+       steps, without and with ``--autotune``: bit-equal losses.
+   The JSON line's ``launches_tuned_serving`` and
+   ``tiling_launches_tuned_serving`` are (c)'s tuned runs'.
+10. The last line: ``{"ok": true, "device": {...}}``.
 
 Phase 2 also times an empty kernel at the uniform kernel's grids
 (``tools/launch_floor.py``, built beside the kernels): the card's floor
@@ -489,7 +521,86 @@ def check_kernels(torch, gen, card, variants_build,
     entries.append(entry)
     entries.append(check_log(torch, gen, card, variants_build))
     entries.append(check_montecarlo(torch, card))
+    tilings = check_tilings(torch, gen)
+    for e in entries:
+        if e["name"] in tilings:
+            e["tilings"] = tilings[e["name"]]
     return entries
+
+
+#: Phase 2's tiling cases: the shape each kernel is tiled at.
+TILING_N = 16 * 1024 * 1024
+TILING_SOFTMAX = (8192, 161)
+
+
+def check_tilings(torch, gen) -> dict:
+    """exp, logf and uniform at 16 M values and softmax at 8192 x 161 (the
+    warp path), each at ``block_rows`` = default / 2, default and 2 x
+    default: the launch geometry from the plan function (the default equal
+    to the launch before tilings existed: 256 threads, exp's and logf's
+    chunk 512 float4s), the tiling counter of the launch, each output bit
+    for bit the default's, and the device ms.  Returns ``{kernel: cases}``."""
+    from repro_torch.kernels import expf, logf, prng, softmax
+    from repro_torch.models.attention import NEG_INF
+
+    n = TILING_N
+    x_exp = torch.empty(n, device="cuda").uniform_(-90.0, 2.0, generator=gen)
+    x_exp[::97] = NEG_INF
+    x_log = log_input(torch, gen)
+    rows, cols = TILING_SOFTMAX
+    x_sm = torch.randn(rows, cols, device="cuda", generator=gen) * 4
+    x_sm[:, cols // 2 + 1:] = NEG_INF
+    n4 = n // 4
+    kernels = {
+        "exp": (expf.exp_cuda, expf.DEFAULT_BLOCK_ROWS,
+                lambda br: expf.exp_cuda(x_exp, br),
+                lambda br: expf.exp_plan(n, x_exp.data_ptr(),
+                                           x_exp.data_ptr(), br),
+                expf.ExpPlan("vector", n4, 0, 256, -(-n4 // 512), 512)),
+        "logf": (logf.log_cuda, logf.DEFAULT_BLOCK_ROWS,
+                 lambda br: logf.log_cuda(x_log, br),
+                 lambda br: logf.log_plan(n, x_log.data_ptr(),
+                                            x_log.data_ptr(), br),
+                 logf.LogPlan("vector", n4, 0, 256, -(-n4 // 512), 512)),
+        "uniform": (prng.uniform_cuda, prng.DEFAULT_BLOCK_ROWS,
+                    lambda br: prng.uniform_cuda(7, n, "xoshiro128p", "cuda",
+                                                 br),
+                    lambda br: prng.uniform_plan(n, br),
+                    prng.UniformPlan(256, min(-(-n // 256), 132 * 16))),
+        "softmax": (softmax.softmax_cuda, softmax.DEFAULT_BLOCK_ROWS,
+                    lambda br: softmax.softmax_cuda(x_sm, br),
+                    lambda br: softmax.softmax_plan(rows, cols,
+                                                    torch.float32, br),
+                    softmax.SoftmaxPlan("warp", grid=rows // 8, threads=256,
+                                        per_lane=8, rows_per_block=8))}
+    out = {}
+    for name, (wrapper, default, run, plan, before) in kernels.items():
+        if plan(None) != before or plan(default) != before:
+            _fail(f"tiling {name}: the default launch {plan(None)} is not "
+                  f"{before}")
+        want = run(None)
+        cases = []
+        for br in (default // 2, default, 2 * default):
+            geometry = plan(br)
+            wrapper.tiling_launches.clear()
+            got = run(br)
+            torch.cuda.synchronize()
+            key = (geometry.rows_per_block if name == "softmax"
+                   else geometry.threads)
+            if wrapper.tiling_launches != {key: 1}:
+                _fail(f"tiling {name} block_rows={br}: launches "
+                      f"{wrapper.tiling_launches}, expected one at {key}")
+            if not torch.equal(got, want):
+                _fail(f"tiling {name} block_rows={br}: output differs from "
+                      "the default tiling's")
+            cases.append(dict(block_rows=br, threads=geometry.threads,
+                              grid=geometry.grid,
+                              ms=_device_ms(lambda: run(br))))
+        out[name] = cases
+        print("tiling:", json.dumps(dict(
+            kernel=name, shape=list(x_sm.shape) if name == "softmax" else [n],
+            bit_equal_to_default=True, cases=cases)))
+    return out
 
 
 def log_input(torch, gen, n: int = 16 * 1024 * 1024, offset: int = 0):
@@ -728,18 +839,27 @@ def _counters():
 
 
 def _reset_counters() -> dict:
-    """Set every launch counter, and every per-path counter, to 0."""
+    """Set every launch counter, every per-path counter and every tiling
+    counter to 0."""
     counters = _counters()
     for c in counters.values():
         c.launches = 0
         for path in getattr(c, "path_launches", {}):
             c.path_launches[path] = 0
+        getattr(c, "tiling_launches", {}).clear()
     return counters
 
 
 def _path_launches(counters) -> dict:
     return {k: dict(c.path_launches) for k, c in counters.items()
             if hasattr(c, "path_launches")}
+
+
+def _tiling_launches(counters) -> dict:
+    """Launches by tiling: threads a block (exp, logf, uniform), rows a
+    block on softmax's warp path."""
+    return {k: dict(c.tiling_launches) for k, c in counters.items()
+            if hasattr(c, "tiling_launches")}
 
 
 def _request(label, fn, vocab):
@@ -816,10 +936,11 @@ def profile_serving(torch, engine, prompts, n_steps: int,
         top=[[k, v] for k, v in by_name.most_common(8)])))
 
 
-def serve_cli(arch: str, greedy: str, sampled: str) -> list:
+def serve_cli(arch: str, greedy: str, sampled: str) -> tuple[list, object]:
     """``launch.serve.main`` at full width, batch 4, prompt 128, 32 new
     tokens: greedy twice (identical tokens, each the argmax of its
-    logits), then at temperature 1.0, seed 3.  Returns the three rows."""
+    logits), then at temperature 1.0, seed 3.  Returns the three rows and
+    the greedy tokens."""
     import numpy as np
 
     from repro_torch.configs import load_config
@@ -840,14 +961,18 @@ def serve_cli(arch: str, greedy: str, sampled: str) -> list:
     if not np.array_equal(a1.tokens[:, 128:], a1.logits.argmax(-1).cpu()):
         _fail(f"({greedy}): greedy tokens are not the argmax of their "
               "logits")
+    tokens = a1.tokens
     del a1, a2
     _, row = _request(f"{sampled}: temperature 1.0, seed 3", lambda: serve.main(
         argv + ["--temperature", "1.0", "--seed", "3"]), V)
     rows.append(row)
-    return rows
+    return rows, tokens
 
 
-def serve_full(torch) -> dict:
+def serve_full(torch) -> tuple[dict, dict, dict]:
+    """Phase 4.  Returns the launches of each kernel, the launches by path,
+    and what phase 9 serves again: the parameters (``launch.serve``'s, from
+    seed 0) and (a)'s greedy tokens."""
     import numpy as np
 
     from repro_torch.configs import load_config
@@ -859,7 +984,7 @@ def serve_full(torch) -> dict:
     total = {k: 0 for k in _counters()}
     paths = {k: dict.fromkeys(v, 0)
              for k, v in _path_launches(_counters()).items()}
-    rows = serve_cli("olmo-1b", "a", "b")
+    rows, greedy_tokens = serve_cli("olmo-1b", "a", "b")
 
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     engine = ServeEngine(cfg, params, max_len=5120, batch=1, device="cuda")
@@ -897,7 +1022,7 @@ def serve_full(torch) -> dict:
         _fail(f"(c): softmax paths {sm}, expected the cluster path only")
     if ex["vector"] <= 0 or ex["scalar"]:
         _fail(f"(c): exp paths {ex}, expected the vector path only")
-    return total, paths
+    return total, paths, dict(params=params, greedy_tokens=greedy_tokens)
 
 
 # ---------------------------------------------------------------------------
@@ -1355,7 +1480,7 @@ def family_deepseek(torch, smi) -> list:
     cfg = load_config("deepseek-moe-16b", "full")
     V = cfg.vocab_size
     torch.cuda.reset_peak_memory_stats()
-    rows = serve_cli(cfg.name, "h", "h")
+    rows, _ = serve_cli(cfg.name, "h", "h")
     for r in rows:
         _only_path(r["request"], r["path_launches"]["softmax"], "warp")
         if r["launches"]["exp"]:
@@ -1727,6 +1852,254 @@ def analytic_phase(torch, smi) -> int:
     return out["c"]["exp_launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the tuner, the tuned tilings and ServeEngine(autotune=True)
+# ---------------------------------------------------------------------------
+
+#: ``kernels.ops._tuned_block_rows`` at the default target: the JAX
+#: package's values (its own tuner on the CPU, from an empty cache).
+TUNED_BLOCK_ROWS = {"expf": 64, "logf": 32, "prng": 32, "softmax": 8}
+#: The module default each of those scales.
+DEFAULT_ROWS = {"expf": 64, "logf": 64, "prng": 64, "softmax": 8}
+TUNE_CAP_MW = 250.0
+
+
+def tune_host() -> dict:
+    """(a) ``Tuner(Target.homogeneous(power_cap_mw=250))``: ``plan``,
+    ``block`` and ``operating_point(heterogeneous=True,
+    per_island_blocks=True)`` of the five workloads from an empty cache and
+    cleared memos, then again warm (equal results, ``plan`` and ``block``
+    from the cache); ``_tuned_block_rows`` equal to the JAX package's."""
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    from repro_torch.perf import clear_all
+    from repro_torch.tune import BUILTIN_KERNELS
+
+    tuner = api.Tuner(api.Target.homogeneous(power_cap_mw=TUNE_CAP_MW))
+
+    def run():
+        t0 = time.perf_counter()
+        out = {name: (tuner.plan(name), tuner.block(name),
+                      tuner.operating_point(name, heterogeneous=True,
+                                            per_island_blocks=True))
+               for name in BUILTIN_KERNELS}
+        return out, time.perf_counter() - t0
+
+    clear_all()
+    cold, cold_s = run()
+    warm, warm_s = run()
+    for name in BUILTIN_KERNELS:
+        for what, c, w in zip(("plan", "block", "operating_point"),
+                              cold[name], warm[name]):
+            if (c.best, c.best_cost) != (w.best, w.best_cost):
+                _fail(f"tune (a): {name} {what} differs warm from cold")
+        if not (warm[name][0].from_cache and warm[name][1].from_cache):
+            _fail(f"tune (a): {name}'s warm plan or block missed the cache")
+    ops._tuned_block_rows.cache_clear()
+    rows = {k: ops._tuned_block_rows(k, d) for k, d in DEFAULT_ROWS.items()}
+    if rows != TUNED_BLOCK_ROWS:
+        _fail(f"tune (a): tuned block rows {rows}, not {TUNED_BLOCK_ROWS}")
+    return dict(cold_s=cold_s, warm_s=warm_s, tuned_block_rows=rows,
+                results={name: dict(
+                    plan=dict(best=p.best.to_dict(),
+                              predicted_speedup=p.predicted_speedup),
+                    block=b.best.block,
+                    operating_point=dict(best=o.best.to_dict(),
+                                         cost=vars(o.best_cost)))
+                    for name, (p, b, o) in cold.items()})
+
+
+def tune_measure(torch) -> dict:
+    """(b) ``measure_candidates`` on the card for the five workloads, the
+    candidates of ``block_ladder(w.max_block)``: every candidate timed
+    (finite), the block size each launched (the tiling counters), every
+    output equal to the default tiling's and Monte Carlo's to the plain
+    version at the same ``n_blocks``; then ``tune(w, measure_top_k=3)`` for
+    softmax and expf."""
+    from dataclasses import replace
+
+    from repro_torch.kernels import ops
+    from repro_torch.tune import (BUILTIN_KERNELS, block_ladder,
+                                  candidate_runner, default_space,
+                                  get_workload, measure_candidates, tune)
+
+    out = {}
+    for name in BUILTIN_KERNELS:
+        w = get_workload(name)
+        default = default_space(w).default
+        cands = [replace(default, block=b) for b in block_ladder(w.max_block)]
+        want = candidate_runner(w, default, device="cuda")()
+        launched = {}
+        for cand in cands:
+            counters = _reset_counters()
+            got = candidate_runner(w, cand, device="cuda")()
+            torch.cuda.synchronize()
+            tilings = {k: v for k, v in _tiling_launches(counters).items()
+                       if v}
+            if name == "montecarlo":
+                n_blocks = max(1, round(8 * cand.block / w.max_block))
+                launched[cand.block] = dict(n_blocks=n_blocks)
+                plain = ops.mc_pi(0, n_samples=max(w.default_problem, 2048),
+                                  n_blocks=n_blocks, impl="reference",
+                                  device="cuda")
+                if counters["montecarlo"].launches != 1 or \
+                        not torch.equal(got, plain):
+                    _fail(f"tune (b) montecarlo block {cand.block}: "
+                          f"{float(got)!r} against the plain version's "
+                          f"{float(plain)!r}")
+            else:
+                if len(tilings) != 1 or not torch.equal(got, want):
+                    _fail(f"tune (b) {name} block {cand.block}: launches "
+                          f"{tilings}, output equal to the default's: "
+                          f"{torch.equal(got, want)}")
+                launched[cand.block] = next(iter(tilings.values()))
+        times = measure_candidates(w, cands, device="cuda")
+        if set(times) != set(cands) or not all(
+                math.isfinite(t) for t in times.values()):
+            _fail(f"tune (b) {name}: times {times}")
+        out[name] = [dict(block=c.block, launched=launched[c.block],
+                          us=times[c]) for c in cands]
+    refined = {}
+    for name in ("softmax", "expf"):
+        res = tune(name, measure_top_k=3)
+        if len(res.measured_us) != 3 or not all(
+                math.isfinite(t) for t in res.measured_us.values()):
+            _fail(f"tune (b): tune({name}, measure_top_k=3) measured "
+                  f"{res.measured_us}")
+        refined[name] = dict(best=res.best.to_dict(),
+                             measured_us=res.measured_us)
+    return dict(candidates=out, measure_top_k_3=refined)
+
+
+def tune_serve(torch, smi, state) -> tuple[dict, dict]:
+    """(c) OLMo-1B at full width with phase 4's parameters and prompts,
+    batch 4, prompt 128, 32 tokens, greedy and sampled (temperature 1.0,
+    seed 3): ``ServeEngine`` without and with ``autotune=True,
+    power_cap_mw=250``.  The tokens equal (greedy also phase 4 (a)'s); the
+    tuned runs launch uniform at 128 threads a block and softmax on its
+    warp path at 8 rows a block; ``close()`` restores the tuned-defaults
+    setting.  Returns the tuned runs' launches and tiling launches."""
+    import numpy as np
+
+    from repro_torch.configs import load_config
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = load_config("olmo-1b", "full")
+    V = cfg.vocab_size
+    params = state["params"]
+    prompts = np.random.default_rng(0).integers(0, V, (4, 128)).astype(
+        np.int32)
+    launches = dict.fromkeys(_counters(), 0)
+    tilings = {}
+    rows, plans = [], {}
+    for mode, kw in (("greedy", {}), ("sampled", dict(temperature=1.0,
+                                                       seed=3))):
+        plain = ServeEngine(cfg, params, max_len=161, batch=4,
+                            device="cuda", **kw)
+        res_u, row_u = _request(f"tune (c) {mode}, autotune off",
+                                lambda: plain.generate(prompts, 32), V)
+        untuned = _tiling_launches(_counters())
+        before = ops.tuned_defaults_enabled()
+        engine = ServeEngine(cfg, params, max_len=161, batch=4,
+                             autotune=True, power_cap_mw=TUNE_CAP_MW,
+                             device="cuda", **kw)
+        res_t, row_t = _request(f"tune (c) {mode}, autotune on",
+                                lambda: engine.generate(prompts, 32), V)
+        tuned = _tiling_launches(_counters())
+        engine.close()
+        if ops.tuned_defaults_enabled() != before:
+            _fail(f"tune (c) {mode}: close() left tuned defaults "
+                  f"{ops.tuned_defaults_enabled()}, not {before}")
+        if not np.array_equal(res_u.tokens, res_t.tokens):
+            _fail(f"tune (c) {mode}: autotune changed the tokens")
+        if mode == "greedy" and not np.array_equal(res_u.tokens,
+                                                   state["greedy_tokens"]):
+            _fail("tune (c): greedy tokens differ from phase 4 (a)'s")
+        _only_path(row_t["request"], row_t["path_launches"]["softmax"],
+                   "warp")
+        if set(tuned["softmax"]) != {8}:
+            _fail(f"tune (c) {mode}: softmax rows a block {tuned['softmax']}")
+        if mode == "sampled" and (set(tuned["uniform"]) != {128}
+                                  or set(untuned["uniform"]) != {256}):
+            _fail(f"tune (c): uniform threads {tuned['uniform']} tuned, "
+                  f"{untuned['uniform']} untuned")
+        for k, v in row_t["launches"].items():
+            launches[k] += v
+        for k, by in tuned.items():
+            for key, v in by.items():
+                tilings.setdefault(k, {})
+                tilings[k][key] = tilings[k].get(key, 0) + v
+        plans[mode] = {name: dict(best=r.best.to_dict(),
+                                  cost=vars(r.best_cost))
+                       for name, r in engine.operating_plan.items()}
+        rows.append(dict(mode=mode, card=smi,
+                         decode_ms_per_token_autotune_off=
+                         row_u["decode_ms_per_token"],
+                         decode_ms_per_token_autotune_on=
+                         row_t["decode_ms_per_token"],
+                         tiling_launches_off=untuned,
+                         tiling_launches_on=tuned))
+        del plain, engine
+    if plans["greedy"] != plans["sampled"]:
+        _fail("tune (c): the operating plan differs between two engines")
+    for r in rows:
+        print("tune serve:", json.dumps(r))
+    print("tune operating_plan:", json.dumps(plans["greedy"]))
+    return launches, tilings
+
+
+def tune_train() -> dict:
+    """(d) ``launch.train.main`` on the olmo-1b smoke model on the card, 3
+    steps, without and with ``--autotune``: bit-equal losses; the process
+    default is restored after the tuned run."""
+    from repro_torch.kernels import ops
+
+    argv = ["--arch", "olmo-1b", "--variant", "smoke", "--steps", "3",
+            "--batch", "4", "--seq", "128", "--log-every", "1",
+            "--device", "cuda"]
+    plain, _ = _train_main(argv)
+    before = ops.tuned_defaults_enabled()
+    try:
+        tuned, text = _train_main(argv + ["--autotune"])
+    finally:
+        ops.set_tuned_defaults(before)
+    if "[tune] kernel block tilings autotuned" not in text:
+        _fail("tune (d): --autotune printed no [tune] line")
+    losses = [r["loss"] for r in plain]
+    if [r["loss"] for r in tuned] != losses:
+        _fail(f"tune (d): losses {[r['loss'] for r in tuned]} with "
+              f"--autotune, {losses} without")
+    return dict(losses=losses)
+
+
+def tune_phase(torch, smi, state) -> tuple[dict, dict]:
+    """Phase 9, with the port's tune cache in a temporary directory.
+    Returns (c)'s launches and tiling launches."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    prev = os.environ.get("REPRO_TORCH_TUNE_CACHE")
+    with tempfile.TemporaryDirectory() as d:
+        os.environ["REPRO_TORCH_TUNE_CACHE"] = str(Path(d) / "cache.json")
+        try:
+            host = tune_host()
+            print("tune host:", json.dumps(dict(host, card=smi)))
+            measured = tune_measure(torch)
+            print("tune measure:", json.dumps(dict(measured, card=smi)))
+            launches, tilings = tune_serve(torch, smi, state)
+            trained = tune_train()
+            print("tune train:", json.dumps(trained))
+        finally:
+            if prev is None:
+                os.environ.pop("REPRO_TORCH_TUNE_CACHE", None)
+            else:
+                os.environ["REPRO_TORCH_TUNE_CACHE"] = prev
+    print(f"tune: phase wall time {time.perf_counter() - t0:.1f} s")
+    return launches, tilings
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1758,12 +2131,17 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     entries = check_kernels(torch, gen, card, variants_build, floor_build)
     check_reference(torch)
-    serving, serving_paths = serve_full(torch)
+    serving, serving_paths, serve_state = serve_full(torch)
     facade, facade_paths = check_facade(torch, gen)
     training = train_phase(torch, smi)
     families, families_paths = families_phase(torch, smi)
     analytic_exp = analytic_phase(torch, smi)
+    tuned, tuned_tilings = tune_phase(torch, smi, serve_state)
+    del serve_state
     for e in entries:
+        e["launches_tuned_serving"] = tuned[e["name"]]
+        if e["name"] in tuned_tilings:
+            e["tiling_launches_tuned_serving"] = tuned_tilings[e["name"]]
         e["launches_training"] = training[e["name"]]
         e["launches_families"] = families[e["name"]]
         if e["name"] in families_paths:

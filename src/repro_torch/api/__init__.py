@@ -11,9 +11,11 @@
   :func:`evaluate` returns.
 
 Plus the verbs :func:`evaluate`, :func:`sweep`, :func:`compare_strategies`,
-:func:`headline` and :func:`config`.  Every ``Report`` equals the JAX
-package's bit for bit.  ``Tuner`` and ``default_tuner`` (ROADMAP §1 item
-3d) and the fault model (3e) are not ported yet.
+:func:`headline`, :class:`Tuner` (plan, block and operating-point searches
+sharing one cache and one batched cost oracle), :func:`default_tuner` and
+:func:`config`.  Every ``Report`` and every tuner result equals the JAX
+package's bit for bit.  The fault model (ROADMAP §1 item 3e) is not ported
+yet.
 """
 
 from repro_torch.api.evaluate import (compare_strategies, evaluate, headline,
@@ -23,6 +25,7 @@ from repro_torch.api.registry import (KernelSpec, kernel, kernels,
 from repro_torch.api.report import Report, ReportMetrics
 from repro_torch.api.runtime import config
 from repro_torch.api.target import Target
+from repro_torch.api.tuner import Tuner
 
 # Re-exported building blocks: the static cluster/system vocabulary a
 # Target is built from.
@@ -32,10 +35,24 @@ from repro_torch.cluster.topology import (NOMINAL_POINT, OPERATING_POINTS,
                                           parse_islands)
 from repro_torch.system.topology import SystemConfig, parse_system
 
+_DEFAULT_TUNER: "Tuner | None" = None
+
+
+def default_tuner() -> Tuner:
+    """The shared process-wide :class:`Tuner` (default target, persistent
+    cache) — what the ``kernels.ops`` tiling defaults and
+    ``copift.make_plan(tune=True)`` consult, so every consumer hits one
+    cache and one cost oracle."""
+    global _DEFAULT_TUNER
+    if _DEFAULT_TUNER is None:
+        _DEFAULT_TUNER = Tuner()
+    return _DEFAULT_TUNER
+
 __all__ = [
     "KernelSpec", "kernel", "kernels", "register_kernel", "specs",
     "Target", "Report", "ReportMetrics",
-    "evaluate", "sweep", "compare_strategies", "headline", "config",
+    "evaluate", "sweep", "compare_strategies", "headline",
+    "Tuner", "default_tuner", "config",
     "NOMINAL_POINT", "OPERATING_POINTS", "SNITCH_CLUSTER", "ClusterConfig",
     "DvfsIsland", "OperatingPoint", "parse_islands",
     "SystemConfig", "parse_system",

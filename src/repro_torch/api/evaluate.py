@@ -14,9 +14,9 @@ reduce to the paper-calibrated single-PE numbers at one core (the
 invariant chain the JAX package pins and ``tests/test_torch_evaluate.py``
 holds the port to).
 
-Three branches wait for later parts of ROADMAP.md §1 item 3 and raise
-``NotImplementedError`` naming them: ``plan=`` (the tuner, 3d), ``faults=``
-(``resilience``, 3e) and system targets (``system.analytics``, 3c).
+Two branches wait for later parts of ROADMAP.md §1 item 3 and raise
+``NotImplementedError`` naming them: ``faults=`` (``resilience``, 3e) and
+system targets (``system.analytics``, 3c).
 
 Like the single-PE model, this is a steady-state view: fill/drain and the
 end-of-kernel barrier are excluded (they vanish against any production
@@ -40,7 +40,8 @@ from repro_torch.cluster.report import Report, headline  # noqa: F401  (re-expor
 from repro_torch.cluster.scheduler import assign
 from repro_torch.core.analytics import TABLE_I
 from repro_torch.core.kernels_isa import baseline_trace, copift_schedule
-from repro_torch.core.timing import baseline_timing, copift_block_timing
+from repro_torch.core.timing import (baseline_timing, copift_block_timing,
+                                     copift_serial_block_timing)
 from repro_torch.obs import record as _obs_record
 from repro_torch.obs.spans import span as _obs_span
 
@@ -158,6 +159,39 @@ def _price_cluster(cfg, name: str, core_points, block: int,
                         instrs_b=instrs_b, power_b=power_b, power_c=power_c)
 
 
+def _resolve_plan(spec, plan):
+    """Canonicalize a tuner candidate for the cluster path.
+
+    Only the *plan* knobs (block, FP fusion, mover demotion, pipelining)
+    travel with the candidate — the cluster itself (cores, operating
+    points, strategy) is the ``Target``'s job, so island layouts are
+    rejected and ``n_cores``/``point`` are ignored."""
+    from repro_torch.tune.cost import (_access_profile, _canonicalize,
+                                       tuned_schedule)
+    w = spec.get_workload()
+    plan = _canonicalize(w, plan)
+    if plan.islands or plan.island_blocks:
+        raise ValueError(
+            "plan carries DVFS-island knobs (islands/island_blocks); "
+            "express the cluster through the Target's core points instead")
+    sched = tuned_schedule(w, plan)
+    return plan, sched, _access_profile(w, sched, plan.block)
+
+
+def _plan_cluster_power(cfg, spec, sched, block, act_points) -> float:
+    """COPIFT cluster power for a rewritten plan schedule: the cost
+    oracle's component model per PE, re-expressed at each active core's
+    operating point (mirrors ``tune.cost._evaluate_het``'s grouping)."""
+    from repro_torch.cluster.dvfs import scale_breakdown
+    from repro_torch.tune.cost import _core_power
+    pb = _core_power(spec.get_workload(), sched, block)
+    counts: dict = {}
+    for p in act_points:
+        counts[p] = counts.get(p, 0) + 1
+    return sum(n * scale_breakdown(pb, p, cfg.nominal).total
+               for p, n in counts.items())
+
+
 def evaluate(spec: "KernelSpec | str", target: Target | None = None, *,
              blocks_per_core: int = 1,
              total_blocks: int | None = None,
@@ -169,9 +203,18 @@ def evaluate(spec: "KernelSpec | str", target: Target | None = None, *,
     strategy).  Every block is the kernel's Table-I max block, as in the
     single-PE ``evaluate_kernel``.
 
-    ``plan`` (a tuner candidate), ``faults`` (a fault trace or state) and
-    system targets (``Target.system``) take the JAX package's signature and
-    raise ``NotImplementedError`` naming the ROADMAP item that ports them;
+    ``plan`` routes a tuner candidate (:class:`repro_torch.tune.Candidate`)
+    through this same cluster path: the schedule is rewritten by
+    ``tune.cost.tuned_schedule``, the block size is the plan's, inter-core
+    TCDM contention comes from the rewritten schedule's own access
+    profile, and COPIFT power from the oracle's component model at each
+    core's point — so a tuned and a default plan produce directly
+    comparable ``Report``\\ s.  ``plan=None`` is the registry default.
+    The RV32G baseline side is never plan-transformed.
+
+    ``faults`` (a fault trace or state) and system targets
+    (``Target.system``) take the JAX package's signature and raise
+    ``NotImplementedError`` naming the ROADMAP item that ports them;
     ``fault_t_ms`` is read only with ``faults``.
     """
     spec = kernel(spec)
@@ -196,11 +239,14 @@ def evaluate(spec: "KernelSpec | str", target: Target | None = None, *,
             "ported yet: ROADMAP §1 item 3e")
     speeds = tuple(p.freq_ghz for p in core_points)
     f_ref = max(speeds)
-    if plan is not None:
-        raise NotImplementedError(
-            "evaluate(plan=...): the tuner's cost model (tune.cost) is not "
-            "ported yet: ROADMAP §1 item 3d")
-    block = TABLE_I[name].max_block
+    if plan is None:
+        plan_sched = plan_profile = None
+        pipelined = True
+        block = TABLE_I[name].max_block
+    else:
+        plan, plan_sched, plan_profile = _resolve_plan(spec, plan)
+        pipelined = plan.pipelined
+        block = plan.block
     if total_blocks is None:
         total_blocks = blocks_per_core * cfg.n_cores
     if total_blocks < 1:
@@ -208,11 +254,39 @@ def evaluate(spec: "KernelSpec | str", target: Target | None = None, *,
                          f"{total_blocks} (blocks_per_core={blocks_per_core})")
     with _obs_span("api.evaluate", kernel=name, n_cores=cfg.n_cores,
                    total_blocks=total_blocks, strategy=target.strategy):
-        cp = _price_cluster(cfg, name, core_points, block, total_blocks,
-                            target.strategy, f_ref)
-        assignment, active = cp.assignment, cp.active
-        extras_c, extras_b = cp.extras_c, cp.extras_b
-        compute_c, compute_b = cp.compute_c, cp.compute_b
+        if plan is None:
+            cp = _price_cluster(cfg, name, core_points, block, total_blocks,
+                                target.strategy, f_ref)
+            assignment, active = cp.assignment, cp.active
+            act_speeds, act_blocks = cp.act_speeds, cp.act_blocks
+            extras_c, extras_b = cp.extras_c, cp.extras_b
+            compute_c, instrs_c = cp.compute_c, cp.instrs_c
+            compute_b, instrs_b = cp.compute_b, cp.instrs_b
+            power_b, power_c = cp.power_b, cp.power_c
+        else:
+            assignment = assign(total_blocks, speeds, target.strategy)
+            active = tuple(i for i, b
+                           in enumerate(assignment.blocks_per_core) if b)
+            act_speeds = tuple(speeds[i] for i in active)
+            act_blocks = tuple(assignment.blocks_per_core[i] for i in active)
+            act_points = tuple(core_points[i] for i in active)
+            extras_c = tuple(
+                plan_profile.extra_stalls_het(cfg, act_speeds, pos)
+                for pos in range(len(act_speeds)))
+            timing = (copift_block_timing if pipelined
+                      else copift_serial_block_timing)
+            copift_fn = lambda e: timing(  # noqa: E731
+                plan_sched, block, extra_contention=e)
+            extras_b = baseline_extra_contention_het(cfg, name, act_speeds)
+            compute_c, instrs_c = _compute_cycles(
+                copift_fn, extras_c, act_blocks, act_speeds, f_ref)
+            compute_b, instrs_b = _compute_cycles(
+                lambda e: _baseline_timing(name, block, e), extras_b,
+                act_blocks, act_speeds, f_ref)
+            power_b = het_cluster_power_mw(cfg, name, act_points,
+                                           copift=False)
+            power_c = _plan_cluster_power(cfg, spec, plan_sched, block,
+                                          act_points)
         total_elems = block * total_blocks
         transfer = transfer_cycles(cfg, kernel_bytes(name, total_elems))
         cycles_c = max(compute_c, transfer)
@@ -221,17 +295,18 @@ def evaluate(spec: "KernelSpec | str", target: Target | None = None, *,
 
         rec = _obs_record.active_recorder()
         if rec is not None:
-            _trace_evaluate(rec, name, block, active, cp.act_speeds,
-                            cp.act_blocks, extras_c, extras_b, f_ref,
-                            transfer, total_blocks, cycles_c, cycles_b)
+            _trace_evaluate(rec, name, plan_sched, block, pipelined, active,
+                            act_speeds, act_blocks, extras_c, extras_b,
+                            f_ref, transfer, total_blocks, cycles_c,
+                            cycles_b)
 
     return Report(
         name=name, strategy=target.strategy, core_points=core_points,
         block=block, total_blocks=total_blocks, total_elems=total_elems,
         blocks_per_core=assignment.blocks_per_core, ref_freq_ghz=f_ref,
         cycles_base=cycles_b, cycles_copift=cycles_c,
-        instrs_base=cp.instrs_b * total_blocks,
-        instrs_copift=cp.instrs_c * total_blocks,
+        instrs_base=instrs_b * total_blocks,
+        instrs_copift=instrs_c * total_blocks,
         extra_contention=max(extras_c),
         # unweighted max/mean on uniform cores (the historical homogeneous
         # figure), makespan over the fluid optimum on mixed islands
@@ -239,13 +314,13 @@ def evaluate(spec: "KernelSpec | str", target: Target | None = None, *,
                    else assignment.weighted_imbalance),
         dma_bound=transfer > compute_c,
         dma_utilization=(transfer / cycles_c if cycles_c else 0.0),
-        power_base_mw=cp.power_b,
-        power_copift_mw=cp.power_c)
+        power_base_mw=power_b,
+        power_copift_mw=power_c)
 
 
-def _trace_evaluate(rec, name, block, active, act_speeds, act_blocks,
-                    extras_c, extras_b, f_ref, transfer, total_blocks,
-                    cycles_c, cycles_b) -> None:
+def _trace_evaluate(rec, name, sched, block, pipelined, active, act_speeds,
+                    act_blocks, extras_c, extras_b, f_ref, transfer,
+                    total_blocks, cycles_c, cycles_b) -> None:
     """Record the per-core cycle accounting of one traced evaluate.
 
     Re-runs the COPIFT/baseline block timings with lanes scoped per core so
@@ -256,18 +331,21 @@ def _trace_evaluate(rec, name, block, active, act_speeds, act_blocks,
     served ``_compute_cycles`` (pure functions of kernel/block/contention),
     and the memo tables are consulted for provenance only, never bypassed.
     Lane names are sequence-numbered so back-to-back evaluates in one
-    session never mix aggregates.  Each core is stamped with the Step-5
-    combinator of the pipelined registry schedule, ``combine="max"`` (the
-    JAX package's serial tuner plans stamp ``"sum"``)."""
+    session never mix aggregates.
+
+    ``sched`` is the (possibly plan-rewritten) COPIFT schedule, or ``None``
+    for the registry default; ``pipelined`` picks the Step-5 combinator and
+    is stamped per core as ``combine`` ("max" | "sum")."""
     seq = len(rec.summaries)
-    sched = copift_schedule(name)
+    if sched is None:
+        sched = copift_schedule(name)
+    timing = copift_block_timing if pipelined else copift_serial_block_timing
     btrace = baseline_trace(name)
     cores = []
     for pos, i in enumerate(active):
         scope = f"eval{seq}.core{i}"
         with rec.lane(scope):
-            bt = copift_block_timing(sched, block,
-                                     extra_contention=extras_c[pos])
+            bt = timing(sched, block, extra_contention=extras_c[pos])
             bb = baseline_timing(btrace, block,
                                  extra_contention=extras_b[pos])
         prefix = f"{scope}/"
@@ -280,7 +358,7 @@ def _trace_evaluate(rec, name, block, active, act_speeds, act_blocks,
                           extra_contention_base=extras_b[pos],
                           block_cycles=bt.cycles, int_cycles=bt.int_cycles,
                           fp_cycles=bt.fp_cycles, base_cycles=bb.cycles,
-                          combine="max",
+                          combine="max" if pipelined else "sum",
                           lanes=lanes))
     rec.summary(dict(kind="evaluate", name=name, block=block,
                      total_blocks=total_blocks, ref_freq_ghz=f_ref,

@@ -8,10 +8,8 @@ names (``"montecarlo"`` → ``pi_xoshiro128p``) to the same spec.  Names,
 aliases and documentation equal the JAX package's; ``op`` and
 ``reference`` point into ``repro_torch.kernels``.
 
-``schedule`` and ``baseline_trace`` answer from the port's analytic model
-(``core.kernels_isa``).  The tuner's workloads are not ported yet (ROADMAP
-§1 item 3d): ``get_workload``, and so ``max_block`` of a tuner-only spec,
-raise ``NotImplementedError`` where the JAX package would answer.  The
+``schedule``, ``baseline_trace`` and ``get_workload`` answer from the
+port's analytic model (``core.kernels_isa``, ``tune.workloads``).  The
 spec's callables are dotted references resolved at first use, so importing
 this module imports no kernel.
 """
@@ -23,9 +21,6 @@ from dataclasses import dataclass, field
 
 from repro_torch.core.analytics import TABLE_I
 from repro_torch.core.kernels_isa import KERNELS as ISA_KERNELS
-
-_NOT_PORTED = ("the tuner's workloads (tune.workloads) are not ported yet: "
-               "ROADMAP §1 item 3d")
 
 
 def _resolve_ref(ref: str):
@@ -78,7 +73,7 @@ class KernelSpec:
     @property
     def max_block(self) -> int:
         """Step-4 block-size cap: Table I for ISA kernels, the workload's
-        derivation otherwise (which waits for the tuner)."""
+        L1-budget derivation otherwise."""
         if self.isa_name is not None:
             return TABLE_I[self.isa_name].max_block
         return self.get_workload().max_block
@@ -96,7 +91,7 @@ class KernelSpec:
 
     def schedule(self):
         """The COPIFT ``CopiftSchedule`` (ISA view when available, else the
-        workload's synthetic schedule, which waits for the tuner)."""
+        workload's synthetic schedule)."""
         if self.isa_name is not None:
             from repro_torch.core.kernels_isa import copift_schedule
             return copift_schedule(self.isa_name)
@@ -113,15 +108,15 @@ class KernelSpec:
         return baseline_trace(self.isa_name)
 
     def get_workload(self):
-        """The tuner's workload.  Raises ``KeyError`` for untunable kernels,
-        as the JAX package does, and ``NotImplementedError`` for tunable
-        ones until the tuner is ported."""
+        """The bound ``tune.workloads.Workload``.  Raises ``KeyError`` for
+        untunable kernels — the same failure class as an unknown workload
+        name, so tune-optional consumers catch one exception."""
         if self.workload is None:
             raise KeyError(
                 f"kernel {self.name!r} has no tunable workload; tunable "
                 f"kernels: {[s.name for s in specs() if s.tunable]}")
-        raise NotImplementedError(
-            f"{self.name}.get_workload(): {_NOT_PORTED}")
+        from repro_torch.tune.workloads import get_workload
+        return get_workload(self.workload)
 
     def run(self, *args, **kwargs):
         """Call the entry point (the CUDA kernel on the card, the plain

@@ -5,7 +5,7 @@ A context manager over the kernels' ContextVar overrides
 block, in the current thread or task, and is restored on exit, even on
 error:
 
-    with repro_torch.api.config(impl="cuda"):
+    with repro_torch.api.config(impl="cuda", tuned_defaults=True):
         y = repro_torch.api.kernel("logf").run(x)
 """
 
@@ -19,18 +19,12 @@ def config(impl: str | None = None, tuned_defaults: bool | None = None):
     """Scoped kernel-runtime override.
 
     ``impl``            'auto' | 'cuda' | 'reference' kernel dispatch;
-    ``tuned_defaults``  tuned block tilings: ``True`` is not ported yet
-                        (ROADMAP §1 item 2) and raises; ``False`` and
-                        ``None`` change nothing, since the port's kernels
-                        have no block tiling to tune.
+    ``tuned_defaults``  let the tuner (``repro_torch.tune``) pick the
+                        kernels' default block tilings.
 
     ``None`` leaves a setting untouched; nesting composes (inner scopes
     win).
     """
-    if tuned_defaults:
-        raise NotImplementedError(
-            "config(tuned_defaults=True): the tuned tiling defaults come "
-            "with the analytic model's tuner, ROADMAP §1 item 2")
     from repro_torch.kernels import ops as kops
-    with kops.overrides(impl=impl):
+    with kops.overrides(impl=impl, tuned_defaults=tuned_defaults):
         yield

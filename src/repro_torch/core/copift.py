@@ -128,14 +128,23 @@ def make_plan(name: str, phases: Sequence[PhaseDef], n_elements: int,
               tune: bool = False, tune_objective: str = "cycles") -> CopiftPlan:
     """Steps 3–7 for an explicitly phase-decomposed computation.
 
-    ``tune=True`` asks the autotuner for the block size when no explicit
-    ``block`` was given; the tuner is not ported yet (ROADMAP §1 item 3d),
-    so that raises.  Without it the static Table-I rule applies.
+    ``tune=True`` asks the autotuner (``repro_torch.tune``) for the block
+    size when ``name`` matches a tunable built-in workload and no explicit
+    ``block`` was given; the tuned choice is still clamped to this plan's
+    own scratch budget.  Unknown names keep the static Table-I rule.
     """
     if tune and block is None:
-        raise NotImplementedError(
-            "make_plan(tune=True): the autotuner (tune/, api.tuner) is not "
-            "ported yet: ROADMAP §1 item 3d")
+        # Deferred import (the facade builds on core); block-only search —
+        # a block from the joint argmin is only valid with the fusion and
+        # pipelining choices it was found with, which this plan keeps.
+        # The shared default tuner means this hits the same cache as the
+        # kernels' tiling defaults and the serve engine.
+        from repro_torch.api import default_tuner
+        try:
+            block = default_tuner().block(
+                name, objective=tune_objective).best.block
+        except KeyError:
+            block = None  # not a tunable workload -> static Max Block rule
     # Buffer replicas: producer→consumer distance + 1 (Step 5).
     producers: dict[str, int] = {}
     replicas: dict[str, int] = {}

@@ -14,6 +14,17 @@ extern "C" const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// The block sizes the tiled kernels take (exp, logf, uniform, softmax's
+// warp path): a multiple of 32 from 32 to kMaxBlockThreads, the default
+// tiling's kDefaultBlockThreads among them.  A launcher refuses others.  A
+// kernel built with __launch_bounds__(kMaxBlockThreads) gets at most 64
+// registers a thread, so that a block of 1024 fits an SM.
+constexpr int kDefaultBlockThreads = 256;
+constexpr int kMaxBlockThreads = 1024;
+inline bool valid_block_threads(int threads) {
+  return threads >= 32 && threads <= kMaxBlockThreads && threads % 32 == 0;
+}
+
 // Grid for a grid-stride loop over n elements: enough blocks to fill the
 // 132 SMs of an H100 several times over, and never more than the elements
 // need.

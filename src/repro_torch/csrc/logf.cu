@@ -28,11 +28,20 @@
 // x and y are 16-byte aligned:
 //   - loads float4s, kUnroll = 2 of them a thread before any compute (32
 //     bytes in flight a thread, 64 KB an SM);
-//   - gives each 256-thread block one chunk of 512 float4s (8 KB), so the
-//     grid is n / 2048 blocks and the block scheduler keeps every SM full to
-//     the end;
+//   - gives each block one chunk of kUnroll float4s a thread (at the
+//     default 256 threads, 512 float4s, 8 KB), so the grid is
+//     n / (4 * kUnroll * threads) blocks and the block scheduler keeps every
+//     SM full to the end;
 //   - gives the last n % 4 elements (at most 3) to a scalar tail, which
 //     reads the tables from device memory.
+// Tiling.  The threads a block (a multiple of 32, 32 to 1024) are a launch
+// argument of both kernels, the port's counterpart of the TPU kernel's
+// block_rows: the wrapper (logf.py:log_plan) takes 256 x block_rows / 64
+// threads, so the default 64 rows give 256.  Every Tables policy holds at
+// any such size: SharedTables needs 16 threads to copy the tables,
+// ShuffleTables one whole warp.  No value depends on the tiling.  Both
+// kernels are built with __launch_bounds__(1024); ptxas gives them 32
+// registers a thread, as at a bound of 256 (sm_90a, CUDA 12.8).
 // The table gather is a policy of the vector kernel (Tables below).  With
 // one chunk a block, a copy of the tables into shared memory behind a
 // __syncthreads would happen once per 8 KB.  The vector kernel ships
@@ -51,9 +60,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kUnroll = 2;
-constexpr int64_t kChunk = kThreads * kUnroll;  // float4s a block takes
 constexpr int kTable = 16;
 constexpr uint32_t kOff = 0x3f330000u;
 constexpr float kLn2 = 0x1.62e43p-1f;
@@ -63,7 +70,7 @@ constexpr float kC2 = -0x1p-1f;        // -1/2
 
 // The tables in shared memory: the block's first 16 threads copy them, and
 // every thread waits at one barrier.  Every thread of the block must
-// construct it.
+// construct it; a block of 32 threads or more has the 16 copiers.
 struct SharedTables {
   const float* invc;
   const float* logc;
@@ -149,34 +156,37 @@ __device__ __forceinline__ float4 log4(float4 v, const Tables& tables) {
 // every gather (lanes past the end compute on 1.0), so a policy may hold a
 // barrier or a warp shuffle.
 template <typename Tables>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxBlockThreads)
     log_vec_kernel(const float* __restrict__ x, float* __restrict__ y,
                    int64_t n4, int64_t n, const float* __restrict__ invc,
                    const float* __restrict__ logc) {
   const float4* __restrict__ x4 = reinterpret_cast<const float4*>(x);
   float4* __restrict__ y4 = reinterpret_cast<float4*>(y);
-  const int64_t base = blockIdx.x * kChunk + threadIdx.x;
+  const int64_t threads = blockDim.x;
+  const int64_t base =
+      static_cast<int64_t>(blockIdx.x) * kUnroll * threads + threadIdx.x;
   float4 v[kUnroll];
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
-    v[u] = base + u * kThreads < n4 ? x4[base + u * kThreads]
-                                    : make_float4(1.f, 1.f, 1.f, 1.f);
+    v[u] = base + u * threads < n4 ? x4[base + u * threads]
+                                   : make_float4(1.f, 1.f, 1.f, 1.f);
   }
   const Tables tables(invc, logc);  // after the chunk's loads are issued
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) v[u] = log4(v[u], tables);
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
-    if (base + u * kThreads < n4) y4[base + u * kThreads] = v[u];
+    if (base + u * threads < n4) y4[base + u * threads] = v[u];
   }
-  const int64_t t = 4 * n4 + static_cast<int64_t>(blockIdx.x) * kThreads +
-                    threadIdx.x;
+  const int64_t t =
+      4 * n4 + static_cast<int64_t>(blockIdx.x) * threads + threadIdx.x;
   if (t < n) y[t] = log_phases(x[t], LdgTables(invc, logc));
 }
 
-__global__ void log_kernel(const float* __restrict__ x, float* __restrict__ y,
-                           int64_t n, const float* __restrict__ invc,
-                           const float* __restrict__ logc) {
+__global__ void __launch_bounds__(kMaxBlockThreads)
+    log_kernel(const float* __restrict__ x, float* __restrict__ y, int64_t n,
+               const float* __restrict__ invc,
+               const float* __restrict__ logc) {
   const SharedTables tables(invc, logc);
   const int64_t stride = static_cast<int64_t>(blockDim.x) * gridDim.x;
   for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -188,15 +198,19 @@ __global__ void log_kernel(const float* __restrict__ x, float* __restrict__ y,
 // The vector kernel's launch with the Tables policy given; the checks of
 // copift_log_vec_f32.
 template <typename Tables>
-int launch_vec(const float* x, float* y, int64_t n4, int64_t n,
+int launch_vec(const float* x, float* y, int64_t n4, int64_t n, int threads,
                const float* invc, const float* logc, cudaStream_t stream) {
-  const int64_t grid = n4 > 0 ? (n4 + kChunk - 1) / kChunk : 1;
+  if (!valid_block_threads(threads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t chunk = static_cast<int64_t>(kUnroll) * threads;
+  const int64_t grid = n4 > 0 ? (n4 + chunk - 1) / chunk : 1;
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16 ||
       n4 < 0 || n - 4 * n4 < 0 || n - 4 * n4 > 3 || grid > 2147483647) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {
-    log_vec_kernel<Tables><<<static_cast<unsigned int>(grid), kThreads, 0,
+    log_vec_kernel<Tables><<<static_cast<unsigned int>(grid), threads, 0,
                              stream>>>(x, y, n4, n, invc, logc);
   }
   return static_cast<int>(cudaGetLastError());
@@ -205,23 +219,28 @@ int launch_vec(const float* x, float* y, int64_t n4, int64_t n,
 }  // namespace
 
 // y[j] = log(x[j]) for j < n, on the given stream: the scalar kernel, for
-// any alignment; invc and logc are the two 16-entry fp32 tables on the
-// device.  Returns the launch's cudaError_t as an int (0 on success).
+// any alignment, with `threads` a block (a multiple of 32, 32 to 1024;
+// others are refused with cudaErrorInvalidValue); invc and logc are the two
+// 16-entry fp32 tables on the device.  Returns the launch's cudaError_t as
+// an int (0 on success).
 extern "C" int copift_log_f32(const float* x, float* y, int64_t n,
-                              const float* invc, const float* logc,
-                              cudaStream_t stream) {
+                              int threads, const float* invc,
+                              const float* logc, cudaStream_t stream) {
+  if (!valid_block_threads(threads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n > 0) {
-    log_kernel<<<grid_stride_blocks(n, kThreads), kThreads, 0, stream>>>(
+    log_kernel<<<grid_stride_blocks(n, threads), threads, 0, stream>>>(
         x, y, n, invc, logc);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The same with the vector kernel: x and y 16-byte aligned, n4 = n / 4
-// float4s, then the scalar tail.  Refuses other arguments, and a grid
-// beyond 2^31 - 1 blocks (n beyond 2^42), with cudaErrorInvalidValue.
+// float4s, then the scalar tail, `threads` a block.  Refuses other
+// arguments, and a grid beyond 2^31 - 1 blocks, with cudaErrorInvalidValue.
 extern "C" int copift_log_vec_f32(const float* x, float* y, int64_t n4,
-                                  int64_t n, const float* invc,
+                                  int64_t n, int threads, const float* invc,
                                   const float* logc, cudaStream_t stream) {
-  return launch_vec<ShuffleTables>(x, y, n4, n, invc, logc, stream);
+  return launch_vec<ShuffleTables>(x, y, n4, n, threads, invc, logc, stream);
 }

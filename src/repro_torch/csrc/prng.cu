@@ -16,6 +16,14 @@
 // those 16 take 80 % of the time the 4 bytes do.  splitmix32 lives in
 // prng.cuh, shared with montecarlo.cu.  The TPU kernel's (rows, 1024) tiling
 // and the padding it needs are gone: the grid-stride loop covers any n.
+//
+// Tiling.  The threads a block (a multiple of 32, 32 to 1024) are a launch
+// argument, the port's counterpart of the TPU kernel's block_rows: the
+// wrapper (prng.py:uniform_plan) takes 256 x block_rows / 64 threads, so
+// the default 64 rows give 256.  The grid keeps its cap of 132 x 16 blocks.
+// The counter is the element index i at any tiling, never an offset of the
+// block, so no bit depends on it.  Built with __launch_bounds__(1024): ptxas
+// gives 26 registers a thread (28 at a bound of 256; sm_90a, CUDA 12.8).
 #include "common.cuh"
 #include "prng.cuh"
 
@@ -26,10 +34,9 @@ using copift::kLcgC;
 using copift::kPhi;
 using copift::splitmix32;
 
-constexpr int kThreads = 256;
-
-__global__ void uniform_kernel(float* __restrict__ out, int64_t n,
-                               uint32_t seed, int kind) {
+__global__ void __launch_bounds__(kMaxBlockThreads)
+    uniform_kernel(float* __restrict__ out, int64_t n, uint32_t seed,
+                   int kind) {
   const int64_t stride = static_cast<int64_t>(blockDim.x) * gridDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
@@ -47,12 +54,17 @@ __global__ void uniform_kernel(float* __restrict__ out, int64_t n,
 
 }  // namespace
 
-// out[i] for i < n, on the given stream; kind 0 is the LCG, 1 xoshiro128+.
-// Returns the launch's cudaError_t as an int (0 on success).
+// out[i] for i < n, on the given stream, with `threads` a block (a multiple
+// of 32, 32 to 1024; others are refused with cudaErrorInvalidValue); kind 0
+// is the LCG, 1 xoshiro128+.  Returns the launch's cudaError_t as an int (0
+// on success).
 extern "C" int copift_uniform_f32(float* out, int64_t n, uint32_t seed,
-                                  int kind, cudaStream_t stream) {
+                                  int kind, int threads, cudaStream_t stream) {
+  if (!valid_block_threads(threads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n > 0) {
-    uniform_kernel<<<grid_stride_blocks(n, kThreads), kThreads, 0, stream>>>(
+    uniform_kernel<<<grid_stride_blocks(n, threads), threads, 0, stream>>>(
         out, n, seed, kind);
   }
   return static_cast<int>(cudaGetLastError());

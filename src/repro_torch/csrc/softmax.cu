@@ -13,8 +13,8 @@
 // each launcher its parameters:
 //
 // (a) Warp per row, cols <= 1024 (every serving softmax of short requests:
-//     prefill 8192x161, decode 64x161).  A 256-thread block holds 8 rows,
-//     one per warp.  Lane l reads columns l, l+32, ... once into registers
+//     prefill 8192x161, decode 64x161).  A block holds rows_per_block rows
+//     (1 to 32, the tiling; 8 by default, 256 threads), one per warp.  Lane l reads columns l, l+32, ... once into registers
 //     (kPer values a lane, kPer in {1, 2, 4, 8, 16, 32}); the max and the
 //     sum are __shfl_xor_sync butterflies, so there is no shared memory and
 //     no __syncthreads.  Rows of 161 fp32 are not 16-byte aligned, so the
@@ -122,15 +122,23 @@ __device__ __forceinline__ float warp_reduce(float v) {
 // (a) warp per row
 // ---------------------------------------------------------------------------
 
-constexpr int kWarpThreads = 256;
-constexpr int kRowsPerBlock = kWarpThreads / 32;
+// Rows (warps) a block: the launch argument rows_per_block, 1 to 32, the
+// port's counterpart of the TPU kernel's block_rows (default 8: 256
+// threads).  The grid is ceil(rows / rows_per_block); the warps of the last
+// block past the end leave at once.  No value depends on it: a row is one
+// warp's whatever the block.  The kernel is built twice, with
+// __launch_bounds__(kBound) at the default block (256) and at 1024, and a
+// launch takes the smaller bound that holds it: at 1024, ptxas caps a
+// thread at 64 registers, and kPer = 32 takes 78 at the default bound (63
+// capped, no spill; sm_90a, CUDA 12.8).
+constexpr int kMaxRowsPerBlock = kMaxBlockThreads / 32;
 
-template <typename T, int kPer>
-__global__ void __launch_bounds__(kWarpThreads)
+template <typename T, int kPer, int kBound>
+__global__ void __launch_bounds__(kBound)
     softmax_warp_kernel(const T* __restrict__ x, T* __restrict__ y,
                         int64_t rows, int cols) {
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / 32;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (blockDim.x / 32) +
+                      threadIdx.x / 32;
   if (row >= rows) return;  // a whole warp leaves: no shuffle is left short
   const int lane = threadIdx.x % 32;
   const T* in = x + row * cols;
@@ -164,26 +172,36 @@ __global__ void __launch_bounds__(kWarpThreads)
 
 template <typename T, int kPer>
 int launch_warp_as(const T* x, T* y, int64_t rows, int cols,
-                   cudaStream_t stream) {
-  const unsigned int grid =
-      static_cast<unsigned int>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
-  softmax_warp_kernel<T, kPer><<<grid, kWarpThreads, 0, stream>>>(x, y, rows,
-                                                                  cols);
+                   int rows_per_block, cudaStream_t stream) {
+  const unsigned int grid = static_cast<unsigned int>(
+      (rows + rows_per_block - 1) / rows_per_block);
+  const int threads = 32 * rows_per_block;
+  if (threads <= kDefaultBlockThreads) {
+    softmax_warp_kernel<T, kPer, kDefaultBlockThreads>
+        <<<grid, threads, 0, stream>>>(x, y, rows, cols);
+  } else {
+    softmax_warp_kernel<T, kPer, kMaxBlockThreads>
+        <<<grid, threads, 0, stream>>>(x, y, rows, cols);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_warp(const T* x, T* y, int64_t rows, int64_t cols, int per_lane,
-                cudaStream_t stream) {
-  if (cols > 32 * static_cast<int64_t>(per_lane)) return cudaErrorInvalidValue;
+                int rows_per_block, cudaStream_t stream) {
+  if (cols > 32 * static_cast<int64_t>(per_lane) || rows_per_block < 1 ||
+      rows_per_block > kMaxRowsPerBlock) {
+    return cudaErrorInvalidValue;
+  }
   const int c = static_cast<int>(cols);
+  const int r = rows_per_block;
   switch (per_lane) {
-    case 1: return launch_warp_as<T, 1>(x, y, rows, c, stream);
-    case 2: return launch_warp_as<T, 2>(x, y, rows, c, stream);
-    case 4: return launch_warp_as<T, 4>(x, y, rows, c, stream);
-    case 8: return launch_warp_as<T, 8>(x, y, rows, c, stream);
-    case 16: return launch_warp_as<T, 16>(x, y, rows, c, stream);
-    case 32: return launch_warp_as<T, 32>(x, y, rows, c, stream);
+    case 1: return launch_warp_as<T, 1>(x, y, rows, c, r, stream);
+    case 2: return launch_warp_as<T, 2>(x, y, rows, c, r, stream);
+    case 4: return launch_warp_as<T, 4>(x, y, rows, c, r, stream);
+    case 8: return launch_warp_as<T, 8>(x, y, rows, c, r, stream);
+    case 16: return launch_warp_as<T, 16>(x, y, rows, c, r, stream);
+    case 32: return launch_warp_as<T, 32>(x, y, rows, c, r, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -451,21 +469,24 @@ int launch_sweep(const T* x, T* y, int64_t rows, int64_t cols,
 
 // Row softmax of a contiguous (rows, cols) matrix into y, on the given
 // stream, one launcher a path and type.  rows and cols are positive, and
-// the grid (rows / 8 blocks for (a), rows * cluster for (b), rows for (c))
+// the grid (rows / rows_per_block blocks for (a), rows * cluster for (b),
+// rows for (c))
 // stays below 2^31 (the wrapper's plan checks).  A launcher refuses
 // parameters that do not fit its path with cudaErrorInvalidValue.  Each
 // returns the launch's cudaError_t as an int (0 on success).
 extern "C" int copift_softmax_warp_f32(const float* x, float* y, int64_t rows,
                                        int64_t cols, int per_lane,
+                                       int rows_per_block,
                                        cudaStream_t stream) {
-  return launch_warp(x, y, rows, cols, per_lane, stream);
+  return launch_warp(x, y, rows, cols, per_lane, rows_per_block, stream);
 }
 
 extern "C" int copift_softmax_warp_bf16(const __nv_bfloat16* x,
                                         __nv_bfloat16* y, int64_t rows,
                                         int64_t cols, int per_lane,
+                                        int rows_per_block,
                                         cudaStream_t stream) {
-  return launch_warp(x, y, rows, cols, per_lane, stream);
+  return launch_warp(x, y, rows, cols, per_lane, rows_per_block, stream);
 }
 
 extern "C" int copift_softmax_cluster_f32(const float* x, float* y,

@@ -113,6 +113,36 @@ def launch(stem: str, name: str, argtypes, *args) -> None:
         raise RuntimeError(f"{stem}.{name}: CUDA error {code}: {msg}")
 
 
+#: The tiled kernels' block sizes (``csrc/common.cuh``): multiples of 32
+#: from 32 to 1024, 256 at the default tiling.
+MIN_BLOCK_THREADS, DEFAULT_BLOCK_THREADS, MAX_BLOCK_THREADS = 32, 256, 1024
+#: The cap on a grid-stride launch's blocks (``grid_stride_blocks``).
+GRID_STRIDE_CAP = 132 * 16
+
+
+def block_threads(block_rows: int, default_rows: int) -> int:
+    """Threads a block for a tiled kernel: the JAX package's tile height
+    ``block_rows`` scaled from the 256 threads of its default
+    ``default_rows``, ``256 * block_rows / default_rows`` to the nearest
+    multiple of 32 (halves up), clamped to [32, 1024]."""
+    if block_rows < 1:
+        raise ValueError(f"block_rows must be >= 1, got {block_rows}")
+    nearest = (8 * block_rows + default_rows // 2) // default_rows
+    return min(MAX_BLOCK_THREADS, max(MIN_BLOCK_THREADS, 32 * nearest))
+
+
+def grid_stride_blocks(n: int, threads: int) -> int:
+    """``grid_stride_blocks`` of ``csrc/common.cuh``: the blocks of a
+    grid-stride loop over ``n`` elements."""
+    return min(-(-n // threads), GRID_STRIDE_CAP)
+
+
+def count_tiling(wrapper, key: int) -> None:
+    """Add one launch at tiling ``key`` (threads a block, or softmax's rows
+    a block) to ``wrapper.tiling_launches``."""
+    wrapper.tiling_launches[key] = wrapper.tiling_launches.get(key, 0) + 1
+
+
 def stream(t: torch.Tensor) -> int:
     """The handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -7,8 +7,9 @@ The kernel replaces the JAX package's ``repro/kernels/expf.py:_exp_kernel``.
 kernel's phase order so that the two agree to fp32 rounding.
 ``exp_phase_plan`` gives the same three phases to the COPIFT planner
 (``core.copift``).  ``exp_plan``
-picks the kernel's vector or scalar path by alignment;
-``exp_cuda.path_launches`` counts the launches of each.  ``ExpFn`` gives
+picks the kernel's vector or scalar path by alignment and its tiling from
+``block_rows``; ``exp_cuda.path_launches`` counts the launches of each path
+and ``exp_cuda.tiling_launches`` those of each block size.  ``ExpFn`` gives
 the exp a gradient: its forward is the kernel (or, on the CPU, the plain
 version), its backward ``g * y`` in plain PyTorch from the saved output, as
 the JAX package has no backward kernel.
@@ -23,6 +24,10 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import _EXP2_POLY, _LN2_HI, _LN2_LO, _LOG2E
+
+#: The JAX package's default tile height (``repro/kernels/expf.py``); the
+#: kernel's 256 threads a block correspond to it.
+DEFAULT_BLOCK_ROWS = 64
 
 
 def exp_phases(x: torch.Tensor, clamp_hi: bool) -> torch.Tensor:
@@ -91,67 +96,92 @@ def exp_phase_plan(n_elements: int):
     ], n_elements=n_elements)
 
 
-def exp_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain version of the exp kernel: fp32 in, fp32 out."""
+def exp_plain(x: torch.Tensor, block_rows: int | None = None) -> torch.Tensor:
+    """Plain version of the exp kernel: fp32 in, fp32 out.  ``block_rows``
+    is the kernel's tiling, which changes no value; it is ignored."""
     return exp_phases(x.to(torch.float32), clamp_hi=True)
 
 
 class ExpPlan(NamedTuple):
-    """The kernel of ``csrc/expf.cu`` an input takes: ``"vector"`` over
-    ``n_vec4`` float4s and a scalar tail of ``n_tail`` elements, or
-    ``"scalar"`` over all of them."""
+    """The kernel of ``csrc/expf.cu`` an input takes, with its launch:
+    ``"vector"`` over ``n_vec4`` float4s and a scalar tail of ``n_tail``
+    elements, ``chunk`` float4s a block; or ``"scalar"`` over all of them, a
+    grid-stride loop (``chunk`` 0).  ``grid`` blocks of ``threads``."""
     path: str
     n_vec4: int
     n_tail: int
+    threads: int = _build.DEFAULT_BLOCK_THREADS
+    grid: int = 0
+    chunk: int = 0
 
 
-def exp_plan(n: int, x_ptr: int, y_ptr: int) -> ExpPlan:
+#: float4s a thread of the vector kernel loads before it computes
+#: (``csrc/expf.cu``'s kUnroll); ``csrc/logf.cu`` has the same.
+UNROLL = 2
+
+
+def exp_plan(n: int, x_ptr: int, y_ptr: int,
+             block_rows: int | None = None) -> ExpPlan:
     """The vector kernel when both pointers are 16-byte aligned, else the
-    scalar one: chosen by alignment alone."""
+    scalar one: chosen by alignment alone.  ``block_rows`` (the JAX
+    package's tile height, ``DEFAULT_BLOCK_ROWS`` when ``None``) sets the
+    threads a block of either kernel, ``_build.block_threads``; the
+    vector kernel's chunk is ``UNROLL`` float4s a thread."""
+    threads = _build.block_threads(block_rows or DEFAULT_BLOCK_ROWS,
+                                   DEFAULT_BLOCK_ROWS)
     if x_ptr % 16 or y_ptr % 16:
-        return ExpPlan("scalar", 0, n)
-    return ExpPlan("vector", n // 4, n % 4)
+        return ExpPlan("scalar", 0, n, threads,
+                       _build.grid_stride_blocks(n, threads))
+    n_vec4, chunk = n // 4, UNROLL * threads
+    return ExpPlan("vector", n_vec4, n % 4, threads,
+                   max(1, -(-n_vec4 // chunk)), chunk)
 
 
-_ARGS = {"scalar": (_build.PTR, _build.PTR, _build.I64, _build.PTR),
+_ARGS = {"scalar": (_build.PTR, _build.PTR, _build.I64, _build.INT,
+                    _build.PTR),
          "vector": (_build.PTR, _build.PTR, _build.I64, _build.I64,
-                    _build.PTR)}
+                    _build.INT, _build.PTR)}
 
 
-def exp_cuda(x: torch.Tensor) -> torch.Tensor:
+def exp_cuda(x: torch.Tensor, block_rows: int | None = None) -> torch.Tensor:
     """Launch ``csrc/expf.cu`` on a contiguous fp32 CUDA tensor, with the
-    kernel ``exp_plan`` gives its alignment."""
+    kernel and tiling ``exp_plan`` gives its alignment and ``block_rows``."""
     _build.check_cuda_tensor(x, (torch.float32,), "exp_cuda")
     y = torch.empty_like(x)
     n = x.numel()
     if n:
-        plan = exp_plan(n, x.data_ptr(), y.data_ptr())
+        plan = exp_plan(n, x.data_ptr(), y.data_ptr(), block_rows)
         if plan.path == "vector":
             _build.launch("expf", "copift_exp_vec_f32", _ARGS["vector"],
                           x.data_ptr(), y.data_ptr(), plan.n_vec4, n,
-                          _build.stream(x))
+                          plan.threads, _build.stream(x))
         else:
             _build.launch("expf", "copift_exp_f32", _ARGS["scalar"],
-                          x.data_ptr(), y.data_ptr(), n, _build.stream(x))
+                          x.data_ptr(), y.data_ptr(), n, plan.threads,
+                          _build.stream(x))
         exp_cuda.launches += 1
         exp_cuda.path_launches[plan.path] += 1
+        _build.count_tiling(exp_cuda, plan.threads)
     return y
 
 
 exp_cuda.launches = 0
 exp_cuda.path_launches = {"vector": 0, "scalar": 0}
+exp_cuda.tiling_launches = {}
 
 
 class ExpFn(torch.autograd.Function):
     """The COPIFT exp with a gradient.  ``use_kernel`` picks the forward:
-    ``exp_cuda`` on a CUDA tensor, ``exp_plain`` otherwise; both return
-    ``x``'s dtype.  The backward is ``g * y`` from the saved output, in
-    fp32."""
+    ``exp_cuda`` at ``block_rows`` on a CUDA tensor, ``exp_plain``
+    otherwise (which has no tiling); both return ``x``'s dtype.  The
+    backward is ``g * y`` from the saved output, in fp32."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, use_kernel: bool,
+                block_rows: int | None = None) -> torch.Tensor:
         if use_kernel:
-            y = exp_cuda(x.to(torch.float32).contiguous()).to(x.dtype)
+            y = exp_cuda(x.to(torch.float32).contiguous(),
+                         block_rows).to(x.dtype)
         else:
             y = exp_plain(x).to(x.dtype)
         ctx.save_for_backward(y)
@@ -160,4 +190,5 @@ class ExpFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         (y,) = ctx.saved_tensors
-        return (g.to(torch.float32) * y.to(torch.float32)).to(y.dtype), None
+        return ((g.to(torch.float32) * y.to(torch.float32)).to(y.dtype),
+                None, None)

@@ -5,9 +5,13 @@ The kernel replaces the JAX package's ``repro/kernels/prng.py:_uniform_kernel``.
 Element ``i`` seeds its own stream from ``splitmix32((i + seed) mod 2**32)``
 and takes one LCG or xoshiro128+ step; the top 24 bits scale to [0, 1).  The
 kernel and the plain version are bit-exact against the JAX package.
+``uniform_plan`` gives the kernel's launch for a tiling ``block_rows``;
+``uniform_cuda.tiling_launches`` counts the launches of each block size.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -16,6 +20,9 @@ from repro_torch.kernels.ref import (_MASK, _PHI, LCG_A, LCG_C, _mul32,
                                      splitmix32, uniform_from_bits)
 
 KINDS = {"lcg": 0, "xoshiro128p": 1}
+#: The JAX package's default tile height (``repro/kernels/prng.py``); the
+#: kernel's 256 threads a block correspond to it.
+DEFAULT_BLOCK_ROWS = 64
 
 
 def _check_args(seed: int, n: int, kind: str) -> None:
@@ -29,8 +36,11 @@ def _check_args(seed: int, n: int, kind: str) -> None:
 
 
 def uniform_plain(seed: int, n: int, kind: str = "xoshiro128p",
-                  device: torch.device | str = "cpu") -> torch.Tensor:
-    """Plain version of the uniform kernel: ``n`` fp32 values in [0, 1)."""
+                  device: torch.device | str = "cpu",
+                  block_rows: int | None = None) -> torch.Tensor:
+    """Plain version of the uniform kernel: ``n`` fp32 values in [0, 1).
+    ``block_rows`` is the kernel's tiling, which changes no bit; it is
+    ignored."""
     _check_args(seed, n, kind)
     idx = (torch.arange(n, dtype=torch.int64, device=device) + int(seed)) & _MASK
     if kind == "lcg":
@@ -42,20 +52,43 @@ def uniform_plain(seed: int, n: int, kind: str = "xoshiro128p",
     return uniform_from_bits(bits)
 
 
-_ARGS = (_build.PTR, _build.I64, _build.U32, _build.INT, _build.PTR)
+class UniformPlan(NamedTuple):
+    """The launch of ``csrc/prng.cu``'s grid-stride kernel: ``grid`` blocks
+    of ``threads``."""
+    threads: int
+    grid: int
+
+
+def uniform_plan(n: int, block_rows: int | None = None) -> UniformPlan:
+    """``block_rows`` (the JAX package's tile height, ``DEFAULT_BLOCK_ROWS``
+    when ``None``) sets the threads a block, ``_build.block_threads``; the
+    grid covers ``n`` up to its cap of 132 x 16 blocks."""
+    threads = _build.block_threads(block_rows or DEFAULT_BLOCK_ROWS,
+                                   DEFAULT_BLOCK_ROWS)
+    return UniformPlan(threads, _build.grid_stride_blocks(n, threads))
+
+
+_ARGS = (_build.PTR, _build.I64, _build.U32, _build.INT, _build.INT,
+         _build.PTR)
 
 
 def uniform_cuda(seed: int, n: int, kind: str = "xoshiro128p",
-                 device: torch.device | str = "cuda") -> torch.Tensor:
-    """Launch ``csrc/prng.cu``: ``n`` fp32 values in [0, 1) on ``device``."""
+                 device: torch.device | str = "cuda",
+                 block_rows: int | None = None) -> torch.Tensor:
+    """Launch ``csrc/prng.cu``: ``n`` fp32 values in [0, 1) on ``device``,
+    at the tiling ``uniform_plan`` gives ``block_rows``."""
     _check_args(seed, n, kind)
     out = torch.empty(n, dtype=torch.float32, device=device)
     _build.check_cuda_tensor(out, (torch.float32,), "uniform_cuda")
     if n:
+        plan = uniform_plan(n, block_rows)
         _build.launch("prng", "copift_uniform_f32", _ARGS, out.data_ptr(), n,
-                      int(seed), KINDS[kind], _build.stream(out))
+                      int(seed), KINDS[kind], plan.threads,
+                      _build.stream(out))
         uniform_cuda.launches += 1
+        _build.count_tiling(uniform_cuda, plan.threads)
     return out
 
 
 uniform_cuda.launches = 0
+uniform_cuda.tiling_launches = {}

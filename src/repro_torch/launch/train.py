@@ -47,14 +47,17 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--metrics-out", default="")
     ap.add_argument("--autotune", action="store_true",
-                    help="tuned COPIFT kernel tilings (not ported yet)")
+                    help="let repro_torch.tune pick the COPIFT kernel "
+                         "tilings (cached; first run searches, later runs "
+                         "are free)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     if args.autotune:
-        raise NotImplementedError(
-            "--autotune: the tuned tiling defaults come with the analytic "
-            "model's tuner, ROADMAP.md §1 item 2")
+        from repro_torch.kernels import ops as kops
+        kops.set_tuned_defaults(True)
+        print("[tune] kernel block tilings autotuned "
+              "(repro_torch.api.default_tuner cache)")
     device = resolve_device(args.device)
     cfg = load_config(args.arch, args.variant)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")

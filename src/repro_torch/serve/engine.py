@@ -4,7 +4,9 @@ engine.
 The decode step is ONE new token against a ``max_len``-deep KV cache, which
 attention writes in place at ``cache_index``.  Temperature sampling draws
 its Gumbel noise from the COPIFT xoshiro128+ uniform kernel, one counter
-stream per (engine seed, slot, prompt, step).
+stream per (engine seed, slot, prompt, step).  ``autotune=True`` lets the
+analytic model's tuner pick the kernels' tilings and the cluster operating
+plan, as the JAX package's engine does.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.model import forward, resolve_device
 from repro_torch.models.transformer import init_stack_cache
+from repro_torch.obs import metrics as _obs_metrics
+from repro_torch.obs.spans import span as _obs_span
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
@@ -80,10 +84,18 @@ class GenerationResult:
 
 class ServeEngine:
     """Batched greedy/temperature decoding over a fixed slot set, on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    ``device`` (the card unless the caller asks for the CPU).
+
+    ``autotune=True`` flips a process-wide kernel-config default (see
+    ``__init__``); use the engine as a context manager or call
+    :meth:`close` to restore it.  ``system=`` (a manycore deployment) needs
+    the manycore model, which is not ported yet, and raises.
+    """
 
     def __init__(self, cfg: ModelConfig, params, max_len: int = 256,
                  batch: int = 4, temperature: float = 0.0, seed: int = 0,
+                 autotune: bool = False, power_cap_mw: float | None = None,
+                 persist_tuned_defaults: bool = False, system=None,
                  device: torch.device | str = "cuda"):
         self.cfg = cfg
         self.params = params
@@ -91,9 +103,86 @@ class ServeEngine:
         self.batch = batch
         self.temperature = temperature
         self.seed = seed
+        self.autotune = autotune
+        self.power_cap_mw = power_cap_mw
+        self.system = system
+        self.operating_plan = None
+        self.system_plan = None
         self.device = resolve_device(device)
+        self._prev_tuned: bool | None = None
+        self._persist_tuned = persist_tuned_defaults
+        self._closed = False
+        if system is not None:
+            raise NotImplementedError(
+                "ServeEngine(system=...): the manycore model "
+                "(system.analytics) is not ported yet: ROADMAP §1 item 3c")
+        if power_cap_mw is not None and not autotune:
+            raise ValueError(
+                f"power_cap_mw={power_cap_mw} only constrains the autotuned "
+                f"operating plan, but autotune=False, so the cap would be "
+                f"silently ignored. Either pass autotune=True so the engine "
+                f"searches an operating plan under the cap, or drop "
+                f"power_cap_mw to run with the static kernel defaults.")
+        if autotune:
+            # The softmax and uniform kernels run every decode step, so let
+            # the facade's tuner pick their tiling once (cached).  A scoped
+            # ``repro_torch.api.config`` would not outlive __init__, and
+            # generate() may run on another thread, so this uses the
+            # persistent setter and records the value it displaced;
+            # ``close()`` (or leaving the engine's ``with`` block) restores
+            # it, unless the caller opted out via persist_tuned_defaults.
+            from repro_torch import api
+            self._prev_tuned = kops.set_tuned_defaults(True)
+            # The cluster operating plan for the decode-hot kernels: the
+            # heterogeneous (DVFS-island) search with per-island block
+            # refinement, which never scores worse than the homogeneous
+            # ladder under the same power cap.  Advisory on this device —
+            # ``operating_plan`` is what a Snitch-cluster deployment of the
+            # engine would pin.
+            tuner = api.Tuner(api.Target.homogeneous(
+                power_cap_mw=power_cap_mw))
+            t0 = time.perf_counter()
+            with _obs_span("serve.autotune", power_cap_mw=power_cap_mw):
+                self.operating_plan = {
+                    name: tuner.operating_point(name, heterogeneous=True,
+                                                per_island_blocks=True)
+                    for name in ("softmax", "prng")}
+            if _obs_metrics.enabled():
+                _obs_metrics.set_gauge("serve.autotune.wall_s",
+                                       time.perf_counter() - t0)
+                for name, res in self.operating_plan.items():
+                    c = res.best_cost
+                    _obs_metrics.set_gauge(
+                        f"serve.plan.{name}.cycles", c.cycles)
+                    _obs_metrics.set_gauge(
+                        f"serve.plan.{name}.energy_pj", c.energy_pj)
+                    _obs_metrics.set_gauge(
+                        f"serve.plan.{name}.power_mw", c.power_mw)
+                    _obs_metrics.set_gauge(
+                        f"serve.plan.{name}.time_ns", c.time_ns)
         self._prefill = make_prefill(cfg)
         self._step = make_serve_step(cfg)
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def close(self) -> None:
+        """Undo the engine's process-wide side effect: restore the tuned
+        defaults setting that ``autotune=True`` displaced, unless
+        ``persist_tuned_defaults=True``.  Idempotent."""
+        if self._closed:
+            return
+        self._closed = True
+        if self._prev_tuned is not None and not self._persist_tuned:
+            kops.set_tuned_defaults(self._prev_tuned)
+
+    def __enter__(self) -> "ServeEngine":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
+
+    # -- decoding -----------------------------------------------------------
 
     def _slot_seeds(self, prompts: np.ndarray) -> list[int]:
         """One PRNG stream seed per slot, decorrelated across

@@ -161,23 +161,25 @@ class TestRun:
 
 class TestNotPortedYet:
     def test_analytic_model_raises_naming_the_roadmap_item(self):
-        """The ISA views now answer as the JAX package's do (the traces and
-        schedules equal as data); the tuner's workloads still raise."""
+        """The ISA views and, since the tuner is ported, the tuner's
+        workloads answer as the JAX package's do: traces, schedules and
+        workloads equal as data, and ``max_block`` of the tuner-only
+        specs."""
         from test_torch_core import plain
         for spec in api.specs():
-            if not spec.simulatable:
-                continue
             theirs = japi.kernel(spec.name)
-            assert plain(spec.schedule()) == plain(theirs.schedule())
-            assert plain(spec.baseline_trace()) == \
-                plain(theirs.baseline_trace())
-        for call in (lambda: api.kernel("expf").get_workload(),
-                     lambda: api.kernel("prng").get_workload(),
-                     lambda: api.kernel("softmax").max_block,
-                     lambda: api.kernel("prng").schedule()):
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP §1 item 3"):
-                call()
+            if spec.simulatable:
+                assert plain(spec.baseline_trace()) == \
+                    plain(theirs.baseline_trace())
+            if spec.simulatable or spec.tunable:
+                assert plain(spec.schedule()) == plain(theirs.schedule())
+                assert spec.max_block == theirs.max_block
+            if spec.tunable:
+                w, jw = spec.get_workload(), theirs.get_workload()
+                assert (w.name, w.max_block, w.n_buffers_serial,
+                        w.bytes_per_elem, w.uses_issr) == \
+                    (jw.name, jw.max_block, jw.n_buffers_serial,
+                     jw.bytes_per_elem, jw.uses_issr)
 
     def test_failures_the_jax_package_raises_too(self):
         with pytest.raises(KeyError, match="no tunable workload"):
@@ -190,11 +192,22 @@ class TestNotPortedYet:
             api.kernel("softmax").table_i
 
     def test_tuned_defaults(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 2"):
-            with api.config(tuned_defaults=True):
-                pass  # pragma: no cover
+        """``config(tuned_defaults=True)`` scopes the tuned tilings as the
+        JAX package's does: on inside the block, restored after it."""
+        from repro.kernels import ops as jops
+        assert ops.tuned_defaults_enabled() == jops.tuned_defaults_enabled()
+        before = ops.tuned_defaults_enabled()
+        with api.config(tuned_defaults=True), \
+                japi.config(tuned_defaults=True):
+            assert ops.tuned_defaults_enabled() is True
+            assert jops.tuned_defaults_enabled() is True
+            with api.config(tuned_defaults=False):
+                assert ops.tuned_defaults_enabled() is False
+            assert ops.tuned_defaults_enabled() is True
+        assert ops.tuned_defaults_enabled() == before
         with api.config(impl="reference", tuned_defaults=False):
             assert ops.current_impl() == "reference"
+            assert ops.tuned_defaults_enabled() is False
 
 
 @pytest.fixture

@@ -210,9 +210,23 @@ class TestPlans:
             with pytest.raises(ValueError, match=msg):
                 jcore.make_plan("p", phases(jcore), 8)
 
-    def test_tuned_plan_raises_naming_the_roadmap_item(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
-            core.make_plan("expf", _exp3_phases(core, torch), 64, tune=True)
+    def test_tuned_plan_raises_naming_the_roadmap_item(self, tmp_path,
+                                                       monkeypatch):
+        """``make_plan(tune=True)`` takes the shared default tuner's block,
+        as the JAX package's does (each package's tune cache under
+        ``tmp_path``); a name without a tunable workload keeps the static
+        rule."""
+        monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "t.json"))
+        monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "j.json"))
+        for name, objective in (("expf", "cycles"), ("softmax", "energy"),
+                                ("exp3", "cycles")):
+            plan = core.make_plan(name, _exp3_phases(core, torch), 4096,
+                                  tune=True, tune_objective=objective)
+            jplan = jcore.make_plan(name, _exp3_phases(jcore, jnp), 4096,
+                                    tune=True, tune_objective=objective)
+            assert _plan_data(plan) == _plan_data(jplan)
+        static = core.make_plan("exp3", _exp3_phases(core, torch), 4096)
+        assert _plan_data(plan) == _plan_data(static)
 
     @pytest.mark.parametrize("name", ["expf", "logf", "pi_lcg"])
     def test_plan_from_partition(self, name):

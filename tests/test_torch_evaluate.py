@@ -156,8 +156,10 @@ class TestVerbs:
     def test_perf_lazy_sweep_and_aliases(self):
         import repro_torch.perf as perf
         assert perf.sweep is api.sweep
+        from repro_torch.tune.cost import evaluate_batch
+        assert perf.evaluate_batch is evaluate_batch  # the tuner's, ported
         with pytest.raises(AttributeError):
-            perf.evaluate_batch  # noqa: B018 — the tuner's, not ported
+            perf.no_such_entry_point  # noqa: B018
         assert api.evaluate("montecarlo") == api.evaluate("pi_xoshiro128p")
 
 
@@ -190,8 +192,23 @@ class TestErrors:
             japi.evaluate("prng")
 
     @pytest.mark.parametrize("kw,item", [
-        (dict(plan=object()), "3d"), (dict(faults=object()), "3e")])
+        (dict(plan=dict(block=64, fuse_fp=True, movers=2, pipelined=False)),
+         "3d"),
+        (dict(faults=object()), "3e")])
     def test_later_items_raise_naming_the_roadmap_item(self, kw, item):
+        """``faults=`` waits for item 3e.  ``plan=`` came with the tuner
+        (item 3d): a tuner candidate gives the JAX package's ``Report``."""
+        if item == "3d":
+            from repro import tune as jtune
+            from repro_torch import tune
+            for name, target in (("expf", "default"), ("logf", "islands")):
+                mine = api.evaluate(name, TARGETS[target], total_blocks=5,
+                                    plan=tune.Candidate(**kw["plan"]))
+                theirs = japi.evaluate(name, JTARGETS[target],
+                                       total_blocks=5,
+                                       plan=jtune.Candidate(**kw["plan"]))
+                assert_reports_equal(mine, theirs)
+            return
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP §1 item {item}"):
             api.evaluate("expf", api.Target(), **kw)

@@ -42,8 +42,16 @@ class TestLogPlan:
     ])
     def test_split(self, n, x_ptr, y_ptr, want):
         plan = logf.log_plan(n, x_ptr, y_ptr)
-        assert tuple(plan) == want
+        assert tuple(plan)[:3] == want
         assert 4 * plan.n_vec4 + plan.n_tail == n
+        # The default tiling is the launch from before tilings: 256
+        # threads, a chunk of 512 float4s, or a capped grid-stride grid.
+        assert plan.threads == 256
+        if plan.path == "vector":
+            assert (plan.chunk, plan.grid) == (512, max(1, -(-(n // 4) //
+                                                             512)))
+        else:
+            assert (plan.chunk, plan.grid) == (0, min(-(-n // 256), 2112))
 
 
 class TestMcPlan:

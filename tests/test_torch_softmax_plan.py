@@ -129,8 +129,16 @@ class TestExpPlan:
     ])
     def test_split(self, n, x_ptr, y_ptr, want):
         plan = expf.exp_plan(n, x_ptr, y_ptr)
-        assert tuple(plan) == want
+        assert tuple(plan)[:3] == want
         assert 4 * plan.n_vec4 + plan.n_tail == n
+        # The default tiling is the launch from before tilings: 256
+        # threads, a chunk of 512 float4s, or a capped grid-stride grid.
+        assert plan.threads == 256
+        if plan.path == "vector":
+            assert (plan.chunk, plan.grid) == (512, max(1, -(-(n // 4) //
+                                                             512)))
+        else:
+            assert (plan.chunk, plan.grid) == (0, min(-(-n // 256), 2112))
 
 
 @pytest.fixture
@@ -152,8 +160,8 @@ def recorder(monkeypatch):
 
 class TestWrappers:
     @pytest.mark.parametrize("rows, cols, dtype, path, extra", [
-        (8192, 161, torch.float32, "warp", (8,)),
-        (64, 161, torch.bfloat16, "warp", (8,)),
+        (8192, 161, torch.float32, "warp", (8, 8)),
+        (64, 161, torch.bfloat16, "warp", (8, 8)),
         (16, 5120, torch.float32, "cluster", (8, 640, 256, 2560, 1)),
         (16, 5121, torch.bfloat16, "cluster", (8, 648, 256, 2592, 0)),
         (2, 1 << 20, torch.float32, "sweep", ()),
@@ -223,8 +231,15 @@ class TestSources:
         consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
         assert int(consts["kSmemPerBlock"]) == softmax.SMEM_PER_BLOCK
         assert int(consts["kSlotBytes"]) == softmax.SLOT_BYTES
-        assert int(consts["kWarpThreads"]) == 256
         assert softmax.SMEM_PER_BLOCK == SMEM_PER_BLOCK
+        # The warp path's block: 8 rows of 32 threads by default, at most
+        # a block of 1024 threads (the tiled kernels' bounds).
+        common = (_build.CSRC / "common.cuh").read_text()
+        consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", common))
+        assert int(consts["kDefaultBlockThreads"]) == 256 == \
+            32 * softmax.DEFAULT_BLOCK_ROWS == _build.DEFAULT_BLOCK_THREADS
+        assert int(consts["kMaxBlockThreads"]) == 1024 == \
+            32 * softmax.MAX_ROWS_PER_BLOCK == _build.MAX_BLOCK_THREADS
 
 
 def cluster_emulation(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -448,9 +448,24 @@ class TestNotPorted:
             tmodel.loss_fn(model, cfg,
                            {"tokens": torch.zeros((1, 5), dtype=torch.int32)})
 
-    def test_autotune(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
-            launch_train.main(["--device", "cpu", "--autotune"])
+    def test_autotune(self, capsys, tmp_path, monkeypatch):
+        """``--autotune`` turns the tuned tilings on and prints the JAX
+        package's ``[tune]`` line; the tilings change no value, so the
+        losses equal the run without it."""
+        from repro_torch.kernels import ops
+        monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "t.json"))
+        argv = ["--device", "cpu", "--steps", "3", "--batch", "2", "--seq",
+                "16"]
+        plain = launch_train.main(argv)
+        before = ops.tuned_defaults_enabled()
+        try:
+            tuned = launch_train.main(argv + ["--autotune"])
+            assert ops.tuned_defaults_enabled() is True
+        finally:
+            ops.set_tuned_defaults(before)
+        assert "[tune] kernel block tilings autotuned" in \
+            capsys.readouterr().out
+        assert [h["loss"] for h in tuned] == [h["loss"] for h in plain]
 
 
 class TestLaunch:

@@ -67,7 +67,8 @@ def main() -> int:
 
     def scalar():
         _build.launch("expf", "copift_exp_f32", expf._ARGS["scalar"],
-                      x.data_ptr(), y.data_ptr(), n, _build.stream(x))
+                      x.data_ptr(), y.data_ptr(), n,
+                      _build.DEFAULT_BLOCK_THREADS, _build.stream(x))
         return y
 
     runs = {"shipped vector kernel (exp_cuda)": lambda: expf.exp_cuda(x),

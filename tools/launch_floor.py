@@ -33,7 +33,7 @@ import chip_smoke  # noqa: E402
 from repro_torch.kernels import _build, prng  # noqa: E402
 
 LIB = ROOT / "build" / "launch_floor" / "launch_floor.so"
-THREADS = 256               # csrc/prng.cu's kThreads
+THREADS = _build.DEFAULT_BLOCK_THREADS   # csrc/prng.cu's default block
 SIZES = (8196, 50304)
 
 
@@ -44,11 +44,6 @@ def start_build() -> subprocess.Popen:
         [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(LIB),
          str(ROOT / "tools" / "launch_floor.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-
-def _grid(n: int) -> int:
-    """``grid_stride_blocks(n, THREADS)`` of ``csrc/common.cuh``."""
-    return min(-(-n // THREADS), 132 * 16)
 
 
 def measure(build: subprocess.Popen) -> dict:
@@ -69,12 +64,13 @@ def measure(build: subprocess.Popen) -> dict:
                 raise RuntimeError(f"launch_floor_empty: CUDA error {code}")
         return run
 
+    grids = {n: _build.grid_stride_blocks(n, THREADS) for n in SIZES}
     res = {"threads": THREADS, "empty_ms": {}, "uniform_ms": {}}
-    for blocks in (1, *(_grid(n) for n in SIZES)):
+    for blocks in (1, *grids.values()):
         res["empty_ms"][f"{blocks} blocks"] = chip_smoke._device_ms(
             empty(blocks))
     for n in SIZES:
-        res["uniform_ms"][f"n={n} ({_grid(n)} blocks)"] = \
+        res["uniform_ms"][f"n={n} ({grids[n]} blocks)"] = \
             chip_smoke._device_ms(lambda: prng.uniform_cuda(7, n))
     return res
 

@@ -14,9 +14,9 @@
 
 #define LOGF_VARIANT(name, Tables)                                          \
   extern "C" int name(const float* x, float* y, int64_t n4, int64_t n,      \
-                      const float* invc, const float* logc,                 \
+                      int threads, const float* invc, const float* logc,    \
                       cudaStream_t stream) {                                \
-    return launch_vec<Tables>(x, y, n4, n, invc, logc, stream);             \
+    return launch_vec<Tables>(x, y, n4, n, threads, invc, logc, stream);    \
   }
 
 LOGF_VARIANT(logf_variant_shared, SharedTables)

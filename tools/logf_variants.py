@@ -66,7 +66,8 @@ def measure(build: subprocess.Popen, x: torch.Tensor) -> dict:
         fn.argtypes = list(logf._ARGS["vector"])
 
         def run():
-            code = fn(x.data_ptr(), y.data_ptr(), n // 4, n, invc.data_ptr(),
+            code = fn(x.data_ptr(), y.data_ptr(), n // 4, n,
+                      _build.DEFAULT_BLOCK_THREADS, invc.data_ptr(),
                       logc.data_ptr(), _build.stream(x))
             if code:
                 raise RuntimeError(f"logf_variant_{name}: CUDA error {code}")
