@@ -163,7 +163,34 @@ and prints no result line):
        steps, without and with ``--autotune``: bit-equal losses.
    The JSON line's ``launches_tuned_serving`` and
    ``tiling_launches_tuned_serving`` are (c)'s tuned runs'.
-10. The last line: ``{"ok": true, "device": {...}}``.
+10. The rest of ``obs`` and the manycore model (``obs_system_phase``), with
+    the port's tune cache in a temporary directory; prints its wall time:
+    (a) ``python -m repro_torch.obs.trace`` for expf and softmax (8 cores,
+        ``--json --out``): exit 0, both documents parse, expf reconciles
+        with 60 checks; ``Tuner(Target.homogeneous(power_cap_mw=250))
+        .attribute`` of expf and softmax exact, deltas -2 and -4 cycles; a
+        history store with one ``*cycles*`` metric raised 50 % fails
+        ``python -m repro_torch.obs.history --check`` (exit 1);
+        ``obs.report.save_report`` writes the trace, the attribution and
+        the history into one HTML file;
+    (b) every simulatable spec on a 1-cluster ``Target.system`` equals
+        ``Target.homogeneous()``; expf's speedup on 4 clusters is the JAX
+        package's; expf's weak and strong scaling and the cluster roofline
+        printed;
+    (c) OLMo-1B at full width with phase 4's parameters and prompts, batch
+        4, prompt 128, 32 tokens, greedy and sampled, served by
+        ``ServeEngine(autotune=True, power_cap_mw=1000, system=4 Snitch
+        clusters)`` inside ``obs.session(trace=True, metrics=True)``:
+        tokens equal phase 4 (a)'s (greedy) and phase 9's tuned engine's
+        (sampled); ``system_plan`` one cluster with the JAX package's power
+        and time; the ``serve.plan.system.*`` gauges and
+        ``serve.autotune.wall_s`` in the session's metrics, the
+        ``serve.autotune`` span in its saved Chrome trace; softmax on its
+        warp path at 8 rows a block, uniform at 128 threads; ``close()``
+        restores the tuned defaults.
+   The JSON line's ``launches_system_serving`` and
+   ``tiling_launches_system_serving`` are (c)'s.
+11. The last line: ``{"ok": true, "device": {...}}``.
 
 Phase 2 also times an empty kernel at the uniform kernel's grids
 (``tools/launch_floor.py``, built beside the kernels): the card's floor
@@ -1978,7 +2005,8 @@ def tune_serve(torch, smi, state) -> tuple[dict, dict]:
     power_cap_mw=250``.  The tokens equal (greedy also phase 4 (a)'s); the
     tuned runs launch uniform at 128 threads a block and softmax on its
     warp path at 8 rows a block; ``close()`` restores the tuned-defaults
-    setting.  Returns the tuned runs' launches and tiling launches."""
+    setting.  Returns the tuned runs' launches and tiling launches, and
+    keeps the tuned sampled tokens in ``state`` for phase 10."""
     import numpy as np
 
     from repro_torch.configs import load_config
@@ -2016,6 +2044,8 @@ def tune_serve(torch, smi, state) -> tuple[dict, dict]:
         if mode == "greedy" and not np.array_equal(res_u.tokens,
                                                    state["greedy_tokens"]):
             _fail("tune (c): greedy tokens differ from phase 4 (a)'s")
+        if mode == "sampled":
+            state["tuned_sampled_tokens"] = res_t.tokens
         _only_path(row_t["request"], row_t["path_launches"]["softmax"],
                    "warp")
         if set(tuned["softmax"]) != {8}:
@@ -2100,6 +2130,258 @@ def tune_phase(torch, smi, state) -> tuple[dict, dict]:
     return launches, tilings
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the rest of obs, the manycore model and ServeEngine(system=...)
+# ---------------------------------------------------------------------------
+
+#: ``Tuner(Target.system(4 Snitch clusters, power_cap_mw=1000))
+#: .operating_point(name, n_clusters=4)``: (n_clusters, power_mw, time_ns),
+#: the JAX package's values on the CPU.  The energy objective keeps one
+#: cluster.
+SYSTEM_PLAN = {"softmax": (1, 88.12124816086316, 208912.0),
+               "prng": (1, 78.87609989543954, 205360.0)}
+SYSTEM_CAP_MW = 1000.0
+#: ``Tuner(Target.homogeneous(power_cap_mw=250)).attribute(name).delta``.
+ATTRIBUTION_DELTAS = {"expf": -2, "softmax": -4}
+#: ``api.evaluate("expf", Target.system(4)).speedup``.
+EXPF_SYSTEM4_SPEEDUP = 2.1197842747658244
+
+
+def _module_cli(args: list, tmp: Path) -> subprocess.CompletedProcess:
+    """``python -m <args>`` with the checkout's ``src`` on the path."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, "-m"] + args, env=env, cwd=tmp,
+                          capture_output=True, text=True, timeout=300)
+
+
+def obs_host(tmp: Path) -> dict:
+    """(a) Observability over the analytic model, on the host:
+    ``python -m repro_torch.obs.trace`` for expf and softmax (8 cores,
+    ``--json --out``), exit 0 and both documents parse, expf's reconcile ok
+    with 60 checks; the tuner's attribution of expf and softmax exact with
+    deltas of -2 and -4 cycles; a history store whose third record raises
+    one ``*cycles*`` metric 50 % fails ``python -m repro_torch.obs.history
+    --check`` with exit 1; ``obs.report.save_report`` writes the trace, the
+    attribution and the history into one HTML file."""
+    from repro_torch import api
+    from repro_torch.obs import history, report
+    from repro_torch.obs.trace import trace_kernel
+
+    traces = {}
+    for name in ("expf", "softmax"):
+        out = tmp / f"trace_{name}.json"
+        t0 = time.perf_counter()
+        proc = _module_cli(["repro_torch.obs.trace", name, "--cores", "8",
+                            "--json", "--out", str(out)], tmp)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            _fail(f"obs (a): obs.trace {name} exited {proc.returncode}: "
+                  f"{proc.stderr[-2000:]}")
+        doc = json.loads(proc.stdout)
+        if not json.loads(out.read_text())["traceEvents"]:
+            _fail(f"obs (a): the {name} Chrome trace has no events")
+        traces[name] = dict(wall_s=wall, reconcile=doc["reconcile"],
+                            n_events=doc["n_events"], result=doc["result"])
+    if traces["expf"]["reconcile"] != {"ok": True, "n_checks": 60}:
+        _fail(f"obs (a): expf reconcile {traces['expf']['reconcile']}")
+
+    tuner = api.Tuner(api.Target.homogeneous(power_cap_mw=TUNE_CAP_MW))
+    t0 = time.perf_counter()
+    atts = {name: tuner.attribute(name) for name in ATTRIBUTION_DELTAS}
+    attrib_s = time.perf_counter() - t0
+    for name, att in atts.items():
+        print(att.render())
+        if not att.exact or att.delta != ATTRIBUTION_DELTAS[name]:
+            _fail(f"obs (a): {name} attribution exact={att.exact} delta "
+                  f"{att.delta}, not exact with {ATTRIBUTION_DELTAS[name]}")
+
+    store = tmp / "history.jsonl"
+    for i, cycles in enumerate((1000.0, 1000.0, 1500.0)):
+        history.append_record({"fig2/expf/cycles": cycles,
+                               "tune/expf/speedup": 1.5},
+                              source="chip_smoke", path=store,
+                              sha="chip_smoke", ts=float(i))
+    proc = _module_cli(["repro_torch.obs.history", "--path", str(store),
+                        "--check"], tmp)
+    if proc.returncode != 1 or "history.hard" not in proc.stdout:
+        _fail(f"obs (a): history --check exited {proc.returncode}, not 1 "
+              f"on a 50 % cycles regression: {proc.stdout[-1000:]}")
+
+    sess, rep, checks = trace_kernel("expf", n_cores=8)
+    html = tmp / "report.html"
+    report.save_report(html, trace=sess, attribution=list(atts.values()),
+                       history=store, title="chip_smoke phase 10")
+    text = html.read_text()
+    if not (checks["ok"] and "Per-lane issue timeline" in text
+            and "Attribution waterfall" in text and "Metric trends" in text):
+        _fail("obs (a): the HTML report lacks a section")
+    return dict(trace_cli=traces, attribution_s=attrib_s,
+                attribution={k: dict(exact=a.exact, delta=a.delta,
+                                     kind=a.kind)
+                             for k, a in atts.items()},
+                history_check_rc=proc.returncode, report_bytes=len(text))
+
+
+def system_host() -> dict:
+    """(b) The manycore model on the host: every simulatable spec on a
+    1-cluster system equals ``Target.homogeneous()`` with ``==``; expf on 4
+    clusters has the JAX package's speedup; expf's weak and strong scaling
+    and the cluster roofline printed as a table."""
+    from repro_torch import api
+    from repro_torch.cluster import SNITCH_CLUSTER, analytics
+    from repro_torch.system import SystemConfig
+
+    one = api.Target.system(SystemConfig.homogeneous(1, SNITCH_CLUSTER))
+    names = [s.name for s in api.specs() if s.simulatable]
+    for name in names:
+        if api.evaluate(name, one) != api.evaluate(name,
+                                                   api.Target.homogeneous()):
+            _fail(f"system (b): {name} on a 1-cluster system differs from "
+                  "the cluster")
+    speedup = api.evaluate("expf", api.Target.system(4)).speedup
+    if speedup != EXPF_SYSTEM4_SPEEDUP:
+        _fail(f"system (b): expf speedup {speedup!r} on 4 clusters")
+    weak = analytics.weak_scaling("expf")
+    strong = analytics.strong_scaling("expf")
+    rows = list(zip([r.n_cores for r in weak],
+                    [r.cycles_copift for r in weak],
+                    analytics.scaling_efficiency(weak),
+                    [r.cycles_copift for r in strong],
+                    analytics.scaling_efficiency(strong)))
+    print("system (b): cores, weak cycles, weak eff, strong cycles (48 "
+          "blocks), strong eff")
+    for row in rows:
+        print("system (b): " + ", ".join(f"{v:g}" for v in row))
+    roof = analytics.cluster_roofline()
+    for p in roof:
+        print(f"system (b): roofline {p.name}: OI {p.oi_flops_per_byte:g} "
+              f"flop/B, attainable {p.attainable_gflops:g} GFLOP/s, "
+              f"achieved {p.achieved_gflops:g}, {p.bound}-bound")
+    if not all(math.isfinite(e) and e > 0 for r in rows for e in r[1:]):
+        _fail(f"system (b): scaling rows {rows}")
+    return dict(cluster_equivalent=names, expf_speedup_4_clusters=speedup,
+                scaling=rows)
+
+
+def system_serve(torch, smi, state, tmp: Path) -> tuple[dict, dict]:
+    """(c) OLMo-1B at full width with phase 4's parameters and prompts,
+    batch 4, prompt 128, 32 tokens, greedy and sampled, served by
+    ``ServeEngine(autotune=True, power_cap_mw=1000, system=4 Snitch
+    clusters)`` inside ``obs.session(trace=True, metrics=True)``.  Tokens
+    equal phase 4 (a)'s (greedy) and phase 9's tuned engine's (sampled);
+    ``system_plan`` is the JAX package's; the session holds the
+    ``serve.plan.system.*`` gauges and ``serve.autotune.wall_s`` and its
+    saved Chrome trace the ``serve.autotune`` span; softmax on its warp
+    path at 8 rows a block, uniform at 128 threads; ``close()`` restores
+    the tuned defaults.  Returns the two requests' launches and tiling
+    launches."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.cluster import SNITCH_CLUSTER
+    from repro_torch.configs import load_config
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.system import SystemConfig
+
+    cfg = load_config("olmo-1b", "full")
+    V = cfg.vocab_size
+    prompts = np.random.default_rng(0).integers(0, V, (4, 128)).astype(
+        np.int32)
+    system = SystemConfig.homogeneous(4, SNITCH_CLUSTER)
+    want = {"greedy": state["greedy_tokens"],
+            "sampled": state["tuned_sampled_tokens"]}
+    launches = dict.fromkeys(_counters(), 0)
+    tilings = {}
+    for mode, kw in (("greedy", {}), ("sampled", dict(temperature=1.0,
+                                                       seed=3))):
+        before = ops.tuned_defaults_enabled()
+        with obs.session(trace=True, metrics=True) as sess:
+            engine = ServeEngine(cfg, state["params"], max_len=161, batch=4,
+                                 autotune=True, power_cap_mw=SYSTEM_CAP_MW,
+                                 system=system, device="cuda", **kw)
+            res, row = _request(f"system (c) {mode}",
+                                lambda: engine.generate(prompts, 32), V)
+            tiled = _tiling_launches(_counters())
+            engine.close()
+        if ops.tuned_defaults_enabled() != before:
+            _fail(f"system (c) {mode}: close() left tuned defaults "
+                  f"{ops.tuned_defaults_enabled()}, not {before}")
+        if not np.array_equal(res.tokens, want[mode]):
+            _fail(f"system (c) {mode}: tokens differ from "
+                  f"{'phase 4 (a)' if mode == 'greedy' else 'phase 9'}'s")
+        plan = {name: (p.n_clusters, p.best_cost.power_mw,
+                       p.best_cost.time_ns)
+                for name, p in engine.system_plan.items()}
+        if plan != SYSTEM_PLAN:
+            _fail(f"system (c) {mode}: system plan {plan}")
+        m = sess.metrics()
+        gauges = {f"serve.plan.system.{name}.{k}": v
+                  for name, vals in plan.items()
+                  for k, v in zip(("n_clusters", "power_mw", "time_ns"),
+                                  vals)}
+        got = {k: m.get(k, {}).get("value") for k in gauges}
+        if got != gauges or "serve.autotune.wall_s" not in m:
+            _fail(f"system (c) {mode}: gauges {got}")
+        trace = tmp / f"serve_{mode}.json"
+        sess.save(trace)
+        spans = {e["name"] for e in json.loads(trace.read_text())[
+            "traceEvents"] if e.get("cat") == "span"}
+        if "serve.autotune" not in spans:
+            _fail(f"system (c) {mode}: spans {sorted(spans)}")
+        _only_path(row["request"], row["path_launches"]["softmax"], "warp")
+        if set(tiled["softmax"]) != {8}:
+            _fail(f"system (c) {mode}: softmax rows a block "
+                  f"{tiled['softmax']}")
+        if mode == "sampled" and set(tiled["uniform"]) != {128}:
+            _fail(f"system (c): uniform threads {tiled['uniform']}")
+        for k, v in row["launches"].items():
+            launches[k] += v
+        for k, by in tiled.items():
+            for key, v in by.items():
+                tilings.setdefault(k, {})
+                tilings[k][key] = tilings[k].get(key, 0) + v
+        print("system serve:", json.dumps(dict(
+            mode=mode, card=smi,
+            decode_ms_per_token=row["decode_ms_per_token"],
+            prefill_ms=row["prefill_ms"],
+            autotune_wall_s=m["serve.autotune.wall_s"]["value"],
+            system_plan=plan, spans=sorted(spans), tiling_launches=tiled)))
+        del engine
+    return launches, tilings
+
+
+def obs_system_phase(torch, smi, state) -> tuple[dict, dict]:
+    """Phase 10, with the port's tune cache in a temporary directory.
+    Returns (c)'s launches and tiling launches."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    prev = os.environ.get("REPRO_TORCH_TUNE_CACHE")
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        os.environ["REPRO_TORCH_TUNE_CACHE"] = str(tmp / "cache.json")
+        try:
+            t = time.perf_counter()
+            host = obs_host(tmp)
+            print("obs host:", json.dumps(dict(
+                host, wall_s=time.perf_counter() - t, card=smi)))
+            t = time.perf_counter()
+            model = system_host()
+            print("system host:", json.dumps(dict(
+                model, wall_s=time.perf_counter() - t, card=smi)))
+            launches, tilings = system_serve(torch, smi, state, tmp)
+        finally:
+            if prev is None:
+                os.environ.pop("REPRO_TORCH_TUNE_CACHE", None)
+            else:
+                os.environ["REPRO_TORCH_TUNE_CACHE"] = prev
+    print(f"obs/system: phase wall time {time.perf_counter() - t0:.1f} s")
+    return launches, tilings
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2137,11 +2419,15 @@ def main() -> int:
     families, families_paths = families_phase(torch, smi)
     analytic_exp = analytic_phase(torch, smi)
     tuned, tuned_tilings = tune_phase(torch, smi, serve_state)
+    sys_served, sys_tilings = obs_system_phase(torch, smi, serve_state)
     del serve_state
     for e in entries:
         e["launches_tuned_serving"] = tuned[e["name"]]
         if e["name"] in tuned_tilings:
             e["tiling_launches_tuned_serving"] = tuned_tilings[e["name"]]
+        e["launches_system_serving"] = sys_served[e["name"]]
+        if e["name"] in sys_tilings:
+            e["tiling_launches_system_serving"] = sys_tilings[e["name"]]
         e["launches_training"] = training[e["name"]]
         e["launches_families"] = families[e["name"]]
         if e["name"] in families_paths:

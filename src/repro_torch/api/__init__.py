@@ -6,13 +6,16 @@
   ``kernel(name).run(...)`` reaches the port's entry points in
   ``kernels.ops``, which launch the CUDA kernels on the card.
 * :class:`Target` — *where* it runs in the analytic model: cluster shape x
-  DVFS point(s) x scheduling strategy x power cap.
+  DVFS point(s) x scheduling strategy x power cap; ``Target.system(...)``
+  attaches a :class:`SystemConfig` (N clusters behind an interconnect and
+  a shared HBM, ``repro_torch.system``).
 * :class:`Report` — *what happened*: the one result dataclass
   :func:`evaluate` returns.
 
 Plus the verbs :func:`evaluate`, :func:`sweep`, :func:`compare_strategies`,
-:func:`headline`, :class:`Tuner` (plan, block and operating-point searches
-sharing one cache and one batched cost oracle), :func:`default_tuner` and
+:func:`headline`, :class:`Tuner` (plan, block, operating-point and
+cluster-count searches sharing one cache and one batched cost oracle, and
+the attribution of a tuned plan's speedup), :func:`default_tuner` and
 :func:`config`.  Every ``Report`` and every tuner result equals the JAX
 package's bit for bit.  The fault model (ROADMAP §1 item 3e) is not ported
 yet.

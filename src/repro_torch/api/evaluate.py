@@ -14,9 +14,13 @@ reduce to the paper-calibrated single-PE numbers at one core (the
 invariant chain the JAX package pins and ``tests/test_torch_evaluate.py``
 holds the port to).
 
-Two branches wait for later parts of ROADMAP.md §1 item 3 and raise
-``NotImplementedError`` naming them: ``faults=`` (``resilience``, 3e) and
-system targets (``system.analytics``, 3c).
+``repro_torch.system.evaluate_system`` composes this same path one level
+up: each cluster of a ``SystemConfig`` is priced by :func:`_price_cluster`
+(the exact per-cluster body of :func:`evaluate`), so the manycore model
+and the single-cluster model are one code path by construction — a
+1-cluster system is bit-for-bit this function.  ``faults=`` waits for the
+fault model (``resilience``, ROADMAP.md §1 item 3e) and raises
+``NotImplementedError`` naming it.
 
 Like the single-PE model, this is a steady-state view: fill/drain and the
 end-of-kernel barrier are excluded (they vanish against any production
@@ -209,13 +213,15 @@ def evaluate(spec: "KernelSpec | str", target: Target | None = None, *,
     TCDM contention comes from the rewritten schedule's own access
     profile, and COPIFT power from the oracle's component model at each
     core's point — so a tuned and a default plan produce directly
-    comparable ``Report``\\ s.  ``plan=None`` is the registry default.
-    The RV32G baseline side is never plan-transformed.
+    comparable ``Report``\\ s (the input to ``obs.attrib``).  ``plan=None``
+    is the registry default.  The RV32G baseline side is never
+    plan-transformed.
 
-    ``faults`` (a fault trace or state) and system targets
-    (``Target.system``) take the JAX package's signature and raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them;
-    ``fault_t_ms`` is read only with ``faults``.
+    A target with a ``system_config`` (``Target.system``) is priced by
+    ``system.evaluate_system``, before anything else, as in the JAX
+    package.  ``faults`` (a fault trace or state) takes the JAX package's
+    signature and raises ``NotImplementedError`` naming ROADMAP §1 item 3e
+    on either kind of target; ``fault_t_ms`` is read only with ``faults``.
     """
     spec = kernel(spec)
     if not spec.simulatable:
@@ -225,10 +231,12 @@ def evaluate(spec: "KernelSpec | str", target: Target | None = None, *,
             f"{[s.name for s in _simulatable()]}")
     target = target or Target()
     if target.system_config is not None:
-        raise NotImplementedError(
-            "evaluate on a system target: the manycore model "
-            "(system.analytics, system.noc, system.scheduler) is not ported "
-            "yet: ROADMAP §1 item 3c")
+        # Manycore part: the system layer reduces _price_cluster over the
+        # clusters (lazy import — repro_torch.system imports api internals).
+        from repro_torch.system.analytics import evaluate_system
+        return evaluate_system(spec, target, blocks_per_core=blocks_per_core,
+                               total_blocks=total_blocks, plan=plan,
+                               faults=faults, fault_t_ms=fault_t_ms)
     name = spec.isa_name
     cfg = target.cluster
 

@@ -21,10 +21,10 @@ shared-block winner stays in the comparison pool — and a uniform per-island
 assignment canonicalizes onto it in the cost oracle — so the refined pick
 never scores worse than the shared-block plan under the same power cap.
 
-Every result equals the JAX package's with ``==``.  Two branches wait for
-later parts of ROADMAP.md §1 item 3 and raise ``NotImplementedError``
-naming them: ``operating_point`` on a system target (``system.analytics``,
-3c) and :meth:`Tuner.attribute` (``obs.attrib``, 3b).
+``operating_point(n_clusters=...)`` lifts the search to the manycore part
+(``system.select_system_point``), and :meth:`Tuner.attribute` explains a
+tuned plan's speedup as an exact stall-category waterfall
+(``obs.attrib``).  Every result equals the JAX package's with ``==``.
 """
 
 from __future__ import annotations
@@ -152,18 +152,31 @@ class Tuner:
         ``"energy@time<=..."`` objective grammar; with no point fast
         enough the selection degrades to the fastest feasible one.
 
-        ``n_clusters`` (a search over cluster counts) and a system target
-        (``Target.system``) need the manycore model, which is not ported
-        yet: both raise ``NotImplementedError`` naming ROADMAP §1 item 3c.
+        ``n_clusters`` lifts the search one level: candidate *cluster
+        counts* (an int ``k`` searches ``1..k``; a tuple searches exactly
+        those) x the DVFS ladder, priced on the whole manycore part with
+        the target's ``power_cap_mw`` as the **system** budget — returns
+        a :class:`repro_torch.system.SystemPoint` (its ``best_cost``
+        mirrors ``TuneResult.best_cost``).  The target's ``system_config``
+        (if any) supplies the cluster template and HBM/NoC parameters;
+        without ``n_clusters`` a system target takes the cluster search on
+        its first cluster, as in the JAX package.
         """
         objective = objective or self.objective or "energy"
         if latency_ns is not None:
             objective = constrain_latency(objective, latency_ns)
-        if n_clusters is not None or self.target.system_config is not None:
-            raise NotImplementedError(
-                "Tuner.operating_point on a system target: the manycore "
-                "model (system.analytics) is not ported yet: ROADMAP §1 "
-                "item 3c")
+        if n_clusters is not None:
+            from repro_torch.system.analytics import select_system_point
+            sys_cfg = self.target.system_config
+            return select_system_point(
+                spec if isinstance(spec, str) else self._workload(spec).name,
+                n_clusters, cluster=self.target.cluster,
+                hbm_bytes_per_cycle=(sys_cfg.hbm_bytes_per_cycle
+                                     if sys_cfg is not None else None),
+                noc_latency_cycles=(sys_cfg.noc_latency_cycles
+                                    if sys_cfg is not None else 0),
+                power_cap_mw=self.target.power_cap_mw,
+                objective=objective)
         w = self._workload(spec)
         with _obs_span("tuner.operating_point", workload=w.name,
                        heterogeneous=heterogeneous,
@@ -182,13 +195,41 @@ class Tuner:
     def attribute(self, spec: "KernelSpec | Workload | str",
                   result: TuneResult | None = None, *,
                   problem: int | None = None, which: str = "copift"):
-        """Where did the tuned plan's speedup come from?  In the JAX package
-        an ``obs.attrib.Attribution``; the attribution module is not ported
-        yet, so this raises ``NotImplementedError`` naming ROADMAP §1 item
-        3b."""
-        raise NotImplementedError(
-            "Tuner.attribute: the attribution waterfall (obs.attrib) is not "
-            "ported yet: ROADMAP §1 item 3b")
+        """Where did the tuned plan's speedup come from?
+
+        Returns an :class:`repro_torch.obs.attrib.Attribution` — the exact
+        stall-category waterfall between ``result.default`` and
+        ``result.best`` (``result=None`` runs :meth:`plan` first).
+        Simulatable registry kernels are priced through the full traced
+        ``api.evaluate`` path on this tuner's target, so the step deltas
+        sum bit-for-bit to the ``Report`` cycle delta; tuner-only
+        workloads (``softmax``, ``prng``) get the per-block decomposition
+        (``obs.attrib.attribute_plans``).
+        """
+        from repro_torch.obs.attrib import attribute_evaluate, attribute_plans
+        w = self._workload(spec)
+        if result is None:
+            result = self.plan(spec, problem=problem)
+        sp = None
+        if isinstance(sp_in := spec, KernelSpec):
+            sp = sp_in
+        elif isinstance(spec, str):
+            try:
+                sp = kernel(spec)
+            except KeyError:
+                sp = None
+        with _obs_span("tuner.attribute", workload=w.name,
+                       evaluate_path=bool(sp is not None and sp.simulatable)):
+            if sp is not None and sp.simulatable:
+                att = attribute_evaluate(
+                    sp, self.target, self.target,
+                    plan_a=result.default, plan_b=result.best,
+                    which=which, label_a="default", label_b="tuned")
+            else:
+                att = attribute_plans(w, result.default, result.best)
+        att.meta.setdefault("predicted_speedup", result.predicted_speedup)
+        att.meta.setdefault("method", result.method)
+        return att
 
     def _refine_island_blocks(self, spec, res: TuneResult,
                               objective: str) -> TuneResult:

@@ -17,14 +17,22 @@ Layer map (mirrors ``repro_torch.core``'s):
   and the energy-optimal-point search under a cluster power cap
 * ``report``      — the unified ``Report`` result object (public name
   ``repro_torch.api.Report``) with every derived metric defined once
+* ``analytics``   — strong/weak scaling curves, cluster roofline and
+  fig2-style aggregates over the single ``repro_torch.api.evaluate`` code
+  path (DVFS-island/big.LITTLE clusters are the general case there)
 
-The scaling curves and the cluster roofline (``repro.cluster.analytics``)
-wait for ROADMAP.md §1 item 3.  At one core, nominal DVFS and zero
-contention the cluster results equal the single-PE
-``core.timing.evaluate_kernel`` / ``core.energy`` numbers bit for bit.
+At one core, nominal DVFS and zero contention the cluster results equal
+the single-PE ``core.timing.evaluate_kernel`` / ``core.energy`` numbers bit
+for bit.
 """
 
-from repro_torch.cluster.report import Report, ReportMetrics, headline
+from repro_torch.cluster.analytics import (ClusterKernelResult,
+                                           HetClusterResult, RooflinePoint,
+                                           cluster_roofline,
+                                           compare_strategies, headline,
+                                           scaling_efficiency,
+                                           strong_scaling, weak_scaling)
+from repro_torch.cluster.report import Report, ReportMetrics
 from repro_torch.cluster.contention import (AccessProfile, baseline_profile,
                                             baseline_extra_contention,
                                             baseline_extra_contention_het,
@@ -47,7 +55,11 @@ from repro_torch.cluster.topology import (NOMINAL_POINT, OPERATING_POINTS,
                                           parse_islands)
 
 __all__ = [
-    "Report", "ReportMetrics", "headline", "AccessProfile",
+    "Report", "ReportMetrics",
+    "ClusterKernelResult", "HetClusterResult", "RooflinePoint",
+    "cluster_roofline", "compare_strategies", "headline",
+    "scaling_efficiency",
+    "strong_scaling", "weak_scaling", "AccessProfile",
     "baseline_profile", "baseline_extra_contention",
     "baseline_extra_contention_het", "copift_extra_contention",
     "copift_extra_contention_het", "copift_profile", "BYTES_PER_ELEM",

@@ -6,7 +6,8 @@ attention writes in place at ``cache_index``.  Temperature sampling draws
 its Gumbel noise from the COPIFT xoshiro128+ uniform kernel, one counter
 stream per (engine seed, slot, prompt, step).  ``autotune=True`` lets the
 analytic model's tuner pick the kernels' tilings and the cluster operating
-plan, as the JAX package's engine does.
+plan (and, with ``system=``, the manycore part's cluster count), as the JAX
+package's engine does.
 """
 
 from __future__ import annotations
@@ -88,8 +89,11 @@ class ServeEngine:
 
     ``autotune=True`` flips a process-wide kernel-config default (see
     ``__init__``); use the engine as a context manager or call
-    :meth:`close` to restore it.  ``system=`` (a manycore deployment) needs
-    the manycore model, which is not ported yet, and raises.
+    :meth:`close` to restore it.  ``system=`` (a
+    :class:`~repro_torch.system.SystemConfig`, a manycore deployment)
+    also sizes the part under autotune: ``system_plan`` holds the cluster
+    count x DVFS point for the decode-hot kernels, priced by the analytic
+    model on the host; without autotune the config is only stored.
     """
 
     def __init__(self, cfg: ModelConfig, params, max_len: int = 256,
@@ -112,10 +116,6 @@ class ServeEngine:
         self._prev_tuned: bool | None = None
         self._persist_tuned = persist_tuned_defaults
         self._closed = False
-        if system is not None:
-            raise NotImplementedError(
-                "ServeEngine(system=...): the manycore model "
-                "(system.analytics) is not ported yet: ROADMAP §1 item 3c")
         if power_cap_mw is not None and not autotune:
             raise ValueError(
                 f"power_cap_mw={power_cap_mw} only constrains the autotuned "
@@ -147,6 +147,18 @@ class ServeEngine:
                     name: tuner.operating_point(name, heterogeneous=True,
                                                 per_island_blocks=True)
                     for name in ("softmax", "prng")}
+                if system is not None:
+                    # Manycore deployment: also size the part — cluster
+                    # count x DVFS point under the same (system) power
+                    # cap, priced through repro_torch.system.  ``system``
+                    # is a SystemConfig whose cluster count is the upper
+                    # bound of the search.
+                    sys_tuner = api.Tuner(api.Target.system(
+                        system, power_cap_mw=power_cap_mw))
+                    self.system_plan = {
+                        name: sys_tuner.operating_point(
+                            name, n_clusters=system.n_clusters)
+                        for name in ("softmax", "prng")}
             if _obs_metrics.enabled():
                 _obs_metrics.set_gauge("serve.autotune.wall_s",
                                        time.perf_counter() - t0)
@@ -160,6 +172,16 @@ class ServeEngine:
                         f"serve.plan.{name}.power_mw", c.power_mw)
                     _obs_metrics.set_gauge(
                         f"serve.plan.{name}.time_ns", c.time_ns)
+                if self.system_plan is not None:
+                    for name, res in self.system_plan.items():
+                        c = res.best_cost
+                        _obs_metrics.set_gauge(
+                            f"serve.plan.system.{name}.n_clusters",
+                            res.n_clusters)
+                        _obs_metrics.set_gauge(
+                            f"serve.plan.system.{name}.power_mw", c.power_mw)
+                        _obs_metrics.set_gauge(
+                            f"serve.plan.system.{name}.time_ns", c.time_ns)
         self._prefill = make_prefill(cfg)
         self._step = make_serve_step(cfg)
 

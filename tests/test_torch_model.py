@@ -260,3 +260,31 @@ class TestInit:
         cfg = load_config("olmo-1b", "smoke")
         with pytest.raises(RuntimeError, match="device='cpu'"):
             init_params(cfg, torch.Generator())
+
+
+CONFIG_MODULES = ["deepseek_moe_16b", "gemma_2b", "grok_1_314b",
+                  "hubert_xlarge", "jamba_v0_1_52b", "olmo_1b",
+                  "phi3_mini_3_8b", "qwen2_vl_72b", "qwen3_32b",
+                  "rwkv6_1_6b"]
+
+
+@pytest.mark.parametrize("module", CONFIG_MODULES)
+def test_per_arch_config_module_equals_the_jax_package(module):
+    """``repro_torch.configs.<arch>`` exposes the JAX module's ``CONFIG``
+    and ``SMOKE``, field by field."""
+    import dataclasses
+    from importlib import import_module
+    mine = import_module(f"repro_torch.configs.{module}")
+    theirs = import_module(f"repro.configs.{module}")
+    for what in ("CONFIG", "SMOKE"):
+        got, want = getattr(mine, what), getattr(theirs, what)
+        assert [f.name for f in dataclasses.fields(got)] == \
+            [f.name for f in dataclasses.fields(want)]
+        for f in dataclasses.fields(want):
+            g, w = getattr(got, f.name), getattr(want, f.name)
+            if dataclasses.is_dataclass(w):
+                assert dataclasses.asdict(g) == dataclasses.asdict(w), f.name
+            else:
+                assert g == w, (what, f.name)
+    assert mine.CONFIG == load_config(mine.CONFIG.name)
+    assert mine.SMOKE == load_config(mine.CONFIG.name, "smoke")

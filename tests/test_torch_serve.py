@@ -148,6 +148,7 @@ _IMPORT_ALL = (
     "import repro_torch\n"
     "import repro_torch.api, repro_torch.core, repro_torch.kernels.ops\n"
     "import repro_torch.cluster, repro_torch.system, repro_torch.perf\n"
+    "import repro_torch.obs, repro_torch.cluster.analytics\n"
     "assert repro_torch.api.kernel('logf').op.startswith('repro_torch.')\n"
     "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
     " 'repro_torch.')]\n"
@@ -155,7 +156,7 @@ _IMPORT_ALL = (
     "bad = sorted(m for m in sys.modules if forbidden(m))\n"
     "print(len(mods), bad)\n"
     "print(*mods)\n"
-    "sys.exit(1 if bad or len(mods) < 65 else 0)\n")
+    "sys.exit(1 if bad or len(mods) < 91 else 0)\n")
 
 
 def _import_all(forbidden: str) -> list[str]:
@@ -177,7 +178,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "train.fault", "data.pipeline", "obs.metrics", "obs.record",
               "launch.train", "models.moe", "models.ssm", "perf.memo",
               "obs.spans", "core.timing", "core.dfg", "core.copift",
-              "cluster.contention", "system.topology", "api.evaluate"):
+              "cluster.contention", "system.topology", "api.evaluate",
+              "obs.session", "obs.export", "obs.attrib", "obs.history",
+              "obs.report", "obs.trace", "cluster.analytics", "system.noc",
+              "system.scheduler", "system.analytics",
+              "configs.deepseek_moe_16b", "configs.rwkv6_1_6b"):
         assert f"repro_torch.{m}" in mods, m
 
 

@@ -4,8 +4,8 @@ blocks) for every tunable spec, ``evaluate(plan=...)``,
 ``make_plan(tune=True)``, the tuner's ``KernelSpec`` views,
 ``perf.evaluate_batch``, ``kernels.ops._tuned_block_rows``,
 ``ServeEngine(autotune=True)`` on the olmo-1b smoke model and
-``launch.train --autotune``; the branches that wait for later ROADMAP
-items; and the kernels' tilings: ``exp_plan``, ``log_plan``,
+``launch.train --autotune``; the system point, ``attribute`` and
+``ServeEngine(system=...)``; and the kernels' tilings: ``exp_plan``, ``log_plan``,
 ``uniform_plan`` and ``softmax_plan`` at ``block_rows=None`` give the launch
 from before tilings, and the rule ``threads = clamp(256 * block_rows /
 default_rows, 32, 1024)`` holds, through the wrappers with the launch
@@ -101,13 +101,26 @@ class TestTuner:
         assert isinstance(api.default_tuner(), api.Tuner)
 
     def test_later_items_raise_naming_them(self):
+        """The branches that raised until the manycore model and the
+        attribution were ported now give the JAX package's results: a
+        system target without ``n_clusters`` takes the cluster search, with
+        ``n_clusters`` the system point; ``attribute`` the exact
+        waterfall."""
+        from test_torch_evaluate import plain
         system = api.Tuner(api.Target.system("2x8c,hbm=256"))
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3c"):
-            system.operating_point("expf")
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3c"):
-            api.Tuner().operating_point("expf", n_clusters=2)
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3b"):
-            api.Tuner().attribute("expf")
+        jsystem = japi.Tuner(japi.Target.system("2x8c,hbm=256"))
+        assert _result(system.operating_point("expf")) == \
+            _result(jsystem.operating_point("expf"))
+        for tuner, jtuner in ((system, jsystem), (api.Tuner(), japi.Tuner())):
+            mine = tuner.operating_point("expf", n_clusters=2)
+            theirs = jtuner.operating_point("expf", n_clusters=2)
+            assert type(mine).__name__ == "SystemPoint"
+            assert plain(mine) == plain(theirs)
+        att, jatt = api.Tuner().attribute("expf"), japi.Tuner().attribute("expf")
+        assert att.exact and jatt.exact
+        assert att.to_dict() == jatt.to_dict()
+        assert [(s.name, s.delta) for s in att.steps] == \
+            [(s.name, s.delta) for s in jatt.steps]
 
 
 class TestAnalyticConsumers:
@@ -293,13 +306,28 @@ class TestEngineAutotune:
         assert ops.tuned_defaults_enabled() == prev
         assert eng.operating_plan is None
 
-    def test_guards(self):
+    def test_guards(self, olmo):
+        """The power-cap guard of both packages; ``system=`` (which raised
+        until the manycore model was ported) prices the JAX package's
+        ``system_plan`` on the smoke model, and only under autotune."""
+        from test_torch_evaluate import plain
+        jcfg, jparams, cfg, params = olmo
         with pytest.raises(ValueError, match="power_cap_mw=250.0 only"):
             _engine(power_cap_mw=250.0)
         with pytest.raises(ValueError, match="power_cap_mw=250.0 only"):
             JaxServeEngine(object(), None, power_cap_mw=250.0)
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3c"):
-            _engine(autotune=True, system=api.parse_system("2x8c"))
+        with ServeEngine(cfg, params, max_len=32, batch=2, device="cpu",
+                         autotune=True, power_cap_mw=1000.0,
+                         system=api.parse_system("2x8c")) as eng:
+            plan = eng.system_plan
+        with JaxServeEngine(jcfg, jparams, max_len=32, batch=2,
+                            autotune=True, power_cap_mw=1000.0,
+                            system=japi.parse_system("2x8c")) as jeng:
+            jplan = jeng.system_plan
+        assert sorted(plan) == sorted(jplan) == ["prng", "softmax"]
+        assert plain(plan) == plain(jplan)
+        static = _engine(system=api.parse_system("2x8c"))
+        assert static.system_plan is None and static.system.n_clusters == 2
         assert ops.tuned_defaults_enabled() is False
 
 
