@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
   python3 chip_smoke.py
+  python3 chip_smoke.py --phase 6     # build, then phase 6 alone
+  python3 chip_smoke.py --phase 11    # build, then phase 11 alone
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
@@ -190,7 +192,39 @@ and prints no result line):
         restores the tuned defaults.
    The JSON line's ``launches_system_serving`` and
    ``tiling_launches_system_serving`` are (c)'s.
-11. The last line: ``{"ok": true, "device": {...}}``.
+11. The serving simulator, resilience, ``remat="dots"`` and int8 gradient
+    compression (``sim_resilience_phase``); prints its wall time:
+    (a) the JAX package's ``benchmarks/serve_bench.py`` scenario through
+        ``repro_torch.serve`` on the host (bursty trace, 2400 ms, seed 11;
+        SLO p99 10 ms, epoch 10 ms, queue cap 256; static, reactive and
+        mpc): static misses the SLO, mpc meets it at no more energy, a
+        second mpc run is ``==``, every policy's p50, p99 and energy are
+        the JAX package's (Snitch-model ms and µJ, not card time);
+    (b) the ``benchmarks/resilience_bench.py`` scenario (Poisson 1500
+        rps, 200 ms, three core deaths, retry 3 / 25 ms / x2 / 0.5 ms,
+        one slot of headroom): failover completes 288 of 288 with 0 SLO
+        violations against naive's 283 and 13, a replay is ``==``, an
+        empty ``FaultTrace`` leaves (a)'s static report ``==``; then
+        ``api.evaluate(faults=...)`` of expf on ``Target()`` and
+        ``Target.system("2x8c,hbm=256")``: a core death and a throttle
+        window each slower than fault-free, an HBM window slower on the
+        system and the identity on the cluster (no HBM port in the
+        cluster model), the empty trace ``==``, every core dead raises
+        ``AllCoresDeadError``;
+    (c) OLMo-1B at full width (batch 4 x seq 2048, fp32 masters, bf16
+        compute, seeded parameters, the token pipeline's batches), 3
+        ``make_train_step`` steps each under ``remat="full"``,
+        ``remat="dots"`` and ``"dots"`` with ``compress_pod_grads=True``:
+        finite values; ``dots``' losses and grad norms equal ``full``'s
+        (loss rtol 1e-4, grad norm 1e-3; whether bit-equal is printed);
+        the compressed run's first loss equals the uncompressed one's;
+        softmax 32 launches a step on its cluster path under both remat
+        modes (the recompute launches it again).  ms/step, tokens/s and
+        peak ``torch.cuda.max_memory_allocated`` of each are printed
+        beside the card's name and power limit.
+   The JSON line's ``launches_remat_dots`` (softmax, exp, uniform) are
+   (c)'s ``dots`` run's.
+12. The last line: ``{"ok": true, "device": {...}}``.
 
 Phase 2 also times an empty kernel at the uniform kernel's grids
 (``tools/launch_floor.py``, built beside the kernels): the card's floor
@@ -2382,7 +2416,347 @@ def obs_system_phase(torch, smi, state) -> tuple[dict, dict]:
     return launches, tilings
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 11: the serving simulator, resilience, remat="dots" and compression
+# ---------------------------------------------------------------------------
+
+#: The JAX package's ``benchmarks/serve_bench.py`` scenario, full duration.
+SERVE_BENCH = dict(
+    spec="bursty:rate=860,burst=2.33,period_ms=1200,duty=0.22,"
+         "kernel=softmax,elems=65536",
+    seed=11, duration_ms=2400.0, slo_ms=10.0, epoch_ms=10.0, queue_cap=256)
+#: What the JAX package's simulator gives on that scenario on the CPU
+#: (Snitch-model milliseconds and microjoules): policy -> (p50, p99,
+#: energy_uj).
+SERVE_BENCH_JAX = {
+    "static": (3.9397786666667116, 14.212271083697772, 255024.96359763845),
+    "reactive": (5.909668000000011, 50.21503071665393, 220554.17025515574),
+    "mpc": (2.9617560000001504, 8.00493583561979, 237295.72844955628)}
+#: The JAX package's ``benchmarks/resilience_bench.py`` scenario.
+RESILIENCE_BENCH = dict(
+    spec="poisson:rate=1500,kernel=softmax,elems=65536", seed=11,
+    duration_ms=200.0,
+    faults="corefail@60:c0.0,corefail@60:c0.1,corefail@120:c0.2",
+    slo_ms=25.0, epoch_ms=10.0, queue_cap=256,
+    retry=dict(max_attempts=3, timeout_ms=25.0, backoff=2.0,
+               base_delay_ms=0.5))
+#: (completed, requests, slo_violations) of naive and failover there, the
+#: JAX package's on the CPU.
+RESILIENCE_BENCH_JAX = {"naive": (283, 288, 13), "failover": (288, 288, 0)}
+
+
+def _sim_row(rep) -> dict:
+    """A ``SimReport``'s figures; times and energies are the Snitch
+    model's, not the card's."""
+    return dict(policy=rep.policy, requests=rep.n_requests,
+                completed=rep.n_completed, dropped=rep.n_dropped,
+                lost=rep.n_lost, retried=rep.n_retried,
+                batches_killed=rep.n_failed, failovers=rep.failovers,
+                model_p50_ms=rep.latency_ms["p50"],
+                model_p99_ms=rep.latency_ms["p99"],
+                model_energy_uj=rep.energy_uj,
+                plan_switches=rep.plan_switches, slo_met=rep.slo_met,
+                slo_violations=rep.slo_violations)
+
+
+def sim_host() -> tuple[dict, dict]:
+    """(a) The serve_bench scenario through the port's simulator, three
+    policies: static misses the p99 SLO, mpc meets it at no more energy
+    than static, a second mpc run is ``==``, and every policy's p50, p99
+    and energy equal the JAX package's.  Returns (the rows, the healthy
+    static report and its trace for (b))."""
+    from repro_torch.serve import (POLICIES, ModelPredictivePolicy,
+                                   ServicePricer, SloSpec, make_trace,
+                                   simulate)
+    sb = SERVE_BENCH
+    trace = make_trace(sb["spec"], duration_ms=sb["duration_ms"],
+                       seed=sb["seed"])
+    kw = dict(slo=SloSpec(latency_ms=sb["slo_ms"]), pricer=ServicePricer(),
+              epoch_ms=sb["epoch_ms"], queue_cap=sb["queue_cap"])
+    t0 = time.perf_counter()
+    reps = {name: simulate(trace, f(trace.mean_rate_rps), **kw)
+            for name, f in POLICIES.items()}
+    wall = time.perf_counter() - t0
+    rerun = simulate(trace, ModelPredictivePolicy(), **kw)
+    static, mpc = reps["static"], reps["mpc"]
+    if static.slo_met:
+        _fail("sim (a): static met the p99 SLO")
+    if not mpc.slo_met or mpc.energy_uj > static.energy_uj:
+        _fail(f"sim (a): mpc slo_met={mpc.slo_met}, energy "
+              f"{mpc.energy_uj!r} uJ vs static's {static.energy_uj!r}")
+    if rerun != mpc:
+        _fail("sim (a): a second mpc run differs")
+    for name, rep in reps.items():
+        got = (rep.latency_ms["p50"], rep.latency_ms["p99"], rep.energy_uj)
+        if got != SERVE_BENCH_JAX[name]:
+            _fail(f"sim (a): {name} (p50, p99, energy) {got}, the JAX "
+                  f"package's {SERVE_BENCH_JAX[name]}")
+    rows = dict(scenario=dict(sb, n_requests=trace.n_requests,
+                              mean_rate_rps=trace.mean_rate_rps),
+                units="Snitch-model ms and uJ (host simulation, not card "
+                      "time)",
+                policies=[_sim_row(reps[n]) for n in POLICIES],
+                three_policies_wall_s=wall)
+    return rows, dict(trace=trace, kw=kw, static=static)
+
+
+def resilience_host(healthy: dict) -> dict:
+    """(b) The resilience_bench scenario: failover completes at least the
+    naive policy's fraction with fewer SLO violations (the JAX package's
+    288/288 and 0 against 283 and 13), a replay is ``==``, an empty
+    ``FaultTrace`` leaves (a)'s static report ``==``; then
+    ``api.evaluate(faults=...)`` on a cluster target and on
+    ``Target.system("2x8c,hbm=256")``: a core death and a throttle window
+    each slower than fault-free, an HBM window slower on the system (on a
+    cluster target, which has no HBM port in the model, the identity),
+    the empty trace ``==`` fault-free, and every core dead raises
+    ``AllCoresDeadError``."""
+    from repro_torch import api
+    from repro_torch.resilience import AllCoresDeadError, FaultState
+    from repro_torch.serve import (FailoverPolicy, RetryPolicy,
+                                   ServicePricer, SloSpec, SlotPlan,
+                                   StaticPolicy, make_faults, make_trace,
+                                   simulate)
+    rb = RESILIENCE_BENCH
+    trace = make_trace(rb["spec"], duration_ms=rb["duration_ms"],
+                       seed=rb["seed"])
+    kw = dict(slo=SloSpec(latency_ms=rb["slo_ms"]), pricer=ServicePricer(),
+              epoch_ms=rb["epoch_ms"], queue_cap=rb["queue_cap"],
+              faults=make_faults(rb["faults"],
+                                 duration_ms=rb["duration_ms"]))
+    plan = SlotPlan(n_slots=4, point="1.00GHz@0.80V", batch_max=4)
+    retry = RetryPolicy(**rb["retry"])
+    t0 = time.perf_counter()
+    reps = {"naive": simulate(trace, StaticPolicy(plan=plan), **kw),
+            "failover": simulate(trace, FailoverPolicy(
+                StaticPolicy(plan=plan), headroom_slots=1), retry=retry,
+                **kw)}
+    wall = time.perf_counter() - t0
+    replay = simulate(trace, FailoverPolicy(StaticPolicy(plan=plan),
+                                            headroom_slots=1),
+                      retry=retry, **kw)
+    naive, fo = reps["naive"], reps["failover"]
+    if not (fo.completed_frac >= naive.completed_frac
+            and fo.slo_violations < naive.slo_violations):
+        _fail(f"resilience (b): failover {fo.completed_frac} / "
+              f"{fo.slo_violations} violations vs naive "
+              f"{naive.completed_frac} / {naive.slo_violations}")
+    for name, rep in reps.items():
+        got = (rep.n_completed, rep.n_requests, rep.slo_violations)
+        if got != RESILIENCE_BENCH_JAX[name]:
+            _fail(f"resilience (b): {name} {got}, the JAX package's "
+                  f"{RESILIENCE_BENCH_JAX[name]}")
+    if replay != fo:
+        _fail("resilience (b): the failover replay differs")
+    empty = simulate(healthy["trace"],
+                     StaticPolicy(rate_rps=healthy["trace"].mean_rate_rps),
+                     faults=make_faults(
+                         "", duration_ms=healthy["trace"].duration_ms),
+                     **healthy["kw"])
+    if empty != healthy["static"]:
+        _fail("resilience (b): an empty FaultTrace changed (a)'s static "
+              "report")
+
+    evals = {}
+    for label, target, n_clusters in (
+            ("cluster", api.Target(), 1),
+            ("system 2x8c,hbm=256", api.Target.system("2x8c,hbm=256"), 2)):
+        base = api.evaluate("expf", target, total_blocks=64)
+        row = dict(fault_free_us=base.time_us)
+        for kind, spec in (("core death", "corefail@1:c0.0"),
+                           ("throttle", "throttle@5-9:isl0>0.6GHz"),
+                           ("hbm", "hbm@20-30:0.01x")):
+            tr = make_faults(spec, duration_ms=50.0, n_clusters=n_clusters,
+                             cores_per_cluster=8)
+            t = tr.events[0].t_ms
+            rep = api.evaluate("expf", target, total_blocks=64, faults=tr,
+                               fault_t_ms=t)
+            row[f"{kind}_us"] = rep.time_us
+            identity = kind == "hbm" and n_clusters == 1
+            if identity and rep != base:
+                _fail(f"resilience (b): an HBM window changed the {label} "
+                      "Report")
+            if not identity and not rep.time_us > base.time_us:
+                _fail(f"resilience (b): {kind} on {label}: "
+                      f"{rep.time_us!r} us, fault-free {base.time_us!r}")
+        if api.evaluate("expf", target, total_blocks=64,
+                        faults=make_faults("")) != base:
+            _fail(f"resilience (b): the empty trace changed the {label} "
+                  "Report")
+        try:
+            api.evaluate("expf", target, faults=FaultState(
+                dead_clusters=tuple(range(n_clusters))))
+        except AllCoresDeadError:
+            pass
+        else:
+            _fail(f"resilience (b): all cores dead on {label} did not "
+                  "raise AllCoresDeadError")
+        evals[label] = row
+    return dict(scenario=dict(rb, n_requests=trace.n_requests),
+                units="Snitch-model ms and uJ, model microseconds (host "
+                      "simulation, not card time)",
+                policies=[_sim_row(reps[n]) for n in ("naive", "failover")],
+                two_runs_wall_s=wall, evaluate_faults=evals)
+
+
+def _remat_run(torch, cfg, steps: int, compress: bool) -> tuple:
+    """``steps`` train steps of a fresh seeded full-width state on the
+    pipeline's batches, every launch counter at 0 first.  Returns (the
+    rows, launches, launches by path, seconds a step, peak bytes)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_step
+
+    torch.cuda.empty_cache()
+    state = _full_state(torch, cfg)
+    pipe = TokenPipeline(cfg, ShapeConfig("remat", 2048, 4, "train"),
+                         device="cuda")
+    fn = make_train_step(cfg, AdamWConfig(warmup_steps=1,
+                                          total_steps=steps),
+                         compress_pod_grads=compress)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        rows, secs = [], []
+        for step in range(steps):
+            t0 = time.perf_counter()
+            _, m = fn(state, pipe.host_batch_at(step))
+            rows.append(dict(step=step, loss=float(m["loss"]),
+                             grad_norm=float(m["grad_norm"])))
+            secs.append(time.perf_counter() - t0)
+        return rows, secs
+
+    (rows, secs), launches, paths, _ = _main_path_run(torch, run)
+    peak = torch.cuda.max_memory_allocated()
+    del state, fn
+    return rows, launches, paths, secs, peak
+
+
+@contextlib.contextmanager
+def _saved_by_dots():
+    """Record what ``remat="dots"``'s policy keeps in the forward passes
+    inside the block: (op name, output elements, bytes) of every op it
+    marks to save."""
+    from repro_torch.models import transformer
+    policy, saved = transformer._dots_policy, []
+
+    def spy(ctx, op, *args, **kwargs):
+        decision = policy(ctx, op, *args, **kwargs)
+        if not ctx.is_recompute and \
+                decision == transformer.CheckpointPolicy.MUST_SAVE:
+            a, b = args[0], args[1]
+            n = a.shape[0] * b.shape[1]
+            saved.append((str(op), n, n * a.element_size()))
+        return decision
+
+    transformer._dots_policy = spy
+    try:
+        yield saved
+    finally:
+        transformer._dots_policy = policy
+
+
+def remat_train(torch, smi) -> dict:
+    """(c) OLMo-1B at full width (batch 4 x seq 2048, fp32 masters, bf16
+    compute, seeded parameters), 3 steps each under ``remat="full"``,
+    ``remat="dots"`` and ``"dots"`` with ``compress_pod_grads=True``:
+    finite values; ``dots``' losses and grad norms equal ``full``'s (loss
+    rtol 1e-4, grad norm 1e-3, as (f)); the compressed run's first loss
+    equals the uncompressed one's; softmax launches 32 times a step, on
+    its cluster path, under both remat modes.  Prints ms/step, tokens/s
+    and peak memory of each.  Returns the ``dots`` run's launches."""
+    from repro_torch.configs import load_config
+    steps = 3
+    base = load_config("olmo-1b", "full")
+    runs = {}
+    saved_per_step = None
+    for label, remat, compress in (("full", "full", False),
+                                   ("dots", "dots", False),
+                                   ("dots+int8", "dots", True)):
+        with _saved_by_dots() as saved:
+            rows, launches, paths, secs, peak = _remat_run(
+                torch, base.replace(remat=remat), steps, compress)
+        _check_finite(f"(c) {label}", rows)
+        if remat == "full" and saved:
+            _fail(f"(c) full: the dots policy ran ({len(saved)} ops)")
+        if remat == "dots":
+            # q, k, v, o, gate, up and down of each layer, each step.
+            want = 7 * base.n_layers * steps
+            if len(saved) != want or {op for op, _, _ in saved} != \
+                    {"aten.mm.default"}:
+                _fail(f"(c) {label}: saved {len(saved)} ops "
+                      f"{sorted({op for op, _, _ in saved})}, not {want} "
+                      "aten.mm")
+            saved_per_step = dict(
+                ops=len(saved) // steps,
+                values_per_token_layer=sum(n for _, n, _ in saved)
+                // (steps * base.n_layers * 4 * 2048),
+                gb=sum(b for _, _, b in saved) / steps / 1e9)
+        ms = statistics.median(secs[1:]) * 1e3
+        runs[label] = dict(rows=rows, launches=launches, paths=paths)
+        if label != "dots+int8":
+            if launches["softmax"] != 32 * steps:
+                _fail(f"(c) {label}: softmax launched "
+                      f"{launches['softmax']} times in {steps} steps, not "
+                      "32 a step")
+            _only_path(f"(c) {label}", paths["softmax"], "cluster")
+        print("remat:", json.dumps(dict(
+            phase=f"c: OLMo-1B full width, batch 4 x seq 2048, bf16 "
+                  f"compute, fp32 masters, remat {remat}"
+                  + (", int8 gradient compression" if compress else ""),
+            card=smi, steps=steps, ms_per_step=ms,
+            ms_per_step_all=[t * 1e3 for t in secs],
+            tokens_per_s=4 * 2048 / (ms / 1e3), peak_memory_gb=peak / 1e9,
+            dots_saved_per_step=saved_per_step if remat == "dots" else None,
+            losses=[r["loss"] for r in rows],
+            grad_norms=[r["grad_norm"] for r in rows],
+            launches_per_step={k: v / steps for k, v in launches.items()},
+            path_launches_per_step={k: {p: v / steps for p, v in by.items()}
+                                    for k, by in paths.items()})))
+    full, dots, comp = (runs[k]["rows"] for k in ("full", "dots",
+                                                  "dots+int8"))
+    for a, b in zip(dots, full):
+        if not math.isclose(a["loss"], b["loss"], rel_tol=1e-4):
+            _fail(f"(c): dots loss {a['loss']!r} vs full's {b['loss']!r}")
+        if not math.isclose(a["grad_norm"], b["grad_norm"], rel_tol=1e-3):
+            _fail(f"(c): dots grad norm {a['grad_norm']!r} vs full's "
+                  f"{b['grad_norm']!r}")
+    if comp[0]["loss"] != dots[0]["loss"]:
+        _fail(f"(c): the compressed run's first loss {comp[0]['loss']!r} "
+              f"differs from the uncompressed one's {dots[0]['loss']!r}")
+    print("remat: dots against full: losses bit-equal "
+          f"{[a['loss'] == b['loss'] for a, b in zip(dots, full)]}, grad "
+          f"norms bit-equal "
+          f"{[a['grad_norm'] == b['grad_norm'] for a, b in zip(dots, full)]}"
+          f"; compressed first loss equal: True")
+    return runs["dots"]["launches"]
+
+
+def sim_resilience_phase(torch, smi) -> dict:
+    """Phase 11.  Returns (c)'s ``remat="dots"`` launches."""
+    t0 = time.perf_counter()
+    rows, healthy = sim_host()
+    print("sim (a):", json.dumps(dict(rows, card=smi)))
+    res = resilience_host(healthy)
+    print("resilience (b):", json.dumps(dict(res, card=smi)))
+    launches = remat_train(torch, smi)
+    print(f"sim/resilience/remat: phase wall time "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port "
+                                 "on one NVIDIA GPU (phases 1 to 12).")
+    ap.add_argument("--phase", type=int, choices=(6, 11),
+                    help="build the kernels, then run only phase 6 "
+                         "(training) or 11 (the serving simulator, "
+                         "resilience, remat='dots' and compression); no "
+                         "result line is printed")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch", file=sys.stderr)
@@ -2401,6 +2775,13 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     smi = _smi("name,power.limit")
     print(smi)
+    if args.phase is not None:
+        t_build = _build.build_all()
+        print(f"kernels built in {t_build:.1f} s into {_build.BUILD_DIR}")
+        run = {6: train_phase, 11: sim_resilience_phase}[args.phase]
+        print(f"phase {args.phase} alone: launches",
+              json.dumps(run(torch, smi)))
+        return 0
     card = Card(torch, _smi)
     print(card.describe())
     from tools import logf_variants
@@ -2421,7 +2802,10 @@ def main() -> int:
     tuned, tuned_tilings = tune_phase(torch, smi, serve_state)
     sys_served, sys_tilings = obs_system_phase(torch, smi, serve_state)
     del serve_state
+    remat_dots = sim_resilience_phase(torch, smi)
     for e in entries:
+        if e["name"] in ("softmax", "exp", "uniform"):
+            e["launches_remat_dots"] = remat_dots[e["name"]]
         e["launches_tuned_serving"] = tuned[e["name"]]
         if e["name"] in tuned_tilings:
             e["tiling_launches_tuned_serving"] = tuned_tilings[e["name"]]

@@ -17,8 +17,8 @@ Plus the verbs :func:`evaluate`, :func:`sweep`, :func:`compare_strategies`,
 cluster-count searches sharing one cache and one batched cost oracle, and
 the attribution of a tuned plan's speedup), :func:`default_tuner` and
 :func:`config`.  Every ``Report`` and every tuner result equals the JAX
-package's bit for bit.  The fault model (ROADMAP §1 item 3e) is not ported
-yet.
+package's bit for bit, also under the fault model (``faults=``, a
+``FaultTrace`` or ``FaultState`` from ``repro_torch.resilience``).
 """
 
 from repro_torch.api.evaluate import (compare_strategies, evaluate, headline,
@@ -36,6 +36,8 @@ from repro_torch.cluster.topology import (NOMINAL_POINT, OPERATING_POINTS,
                                           SNITCH_CLUSTER, ClusterConfig,
                                           DvfsIsland, OperatingPoint,
                                           parse_islands)
+from repro_torch.resilience.faults import (AllCoresDeadError, FaultState,
+                                           FaultTrace, make_faults)
 from repro_torch.system.topology import SystemConfig, parse_system
 
 _DEFAULT_TUNER: "Tuner | None" = None
@@ -59,4 +61,5 @@ __all__ = [
     "NOMINAL_POINT", "OPERATING_POINTS", "SNITCH_CLUSTER", "ClusterConfig",
     "DvfsIsland", "OperatingPoint", "parse_islands",
     "SystemConfig", "parse_system",
+    "FaultTrace", "FaultState", "make_faults", "AllCoresDeadError",
 ]

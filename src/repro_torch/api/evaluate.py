@@ -18,9 +18,9 @@ holds the port to).
 up: each cluster of a ``SystemConfig`` is priced by :func:`_price_cluster`
 (the exact per-cluster body of :func:`evaluate`), so the manycore model
 and the single-cluster model are one code path by construction — a
-1-cluster system is bit-for-bit this function.  ``faults=`` waits for the
-fault model (``resilience``, ROADMAP.md §1 item 3e) and raises
-``NotImplementedError`` naming it.
+1-cluster system is bit-for-bit this function.  ``faults=`` prices the
+target degraded through ``repro_torch.resilience``, as in the JAX
+package.
 
 Like the single-PE model, this is a steady-state view: fill/drain and the
 end-of-kernel barrier are excluded (they vanish against any production
@@ -132,15 +132,21 @@ class _ClusterPass:
 
 def _price_cluster(cfg, name: str, core_points, block: int,
                    total_blocks: int, strategy: str,
-                   f_ref: float) -> _ClusterPass:
+                   f_ref: float, alive=None) -> _ClusterPass:
     """Price ``total_blocks`` blocks of ``name`` on one cluster — the exact
     per-cluster body of :func:`evaluate`'s default-plan path, factored out
     so the system layer reduces over the *same expression tree* (the
     bit-for-bit 1-cluster invariant).  ``f_ref`` is the caller's reference
     clock: the cluster's own fastest core for a lone cluster, the
-    system-wide fastest for a manycore part.  (The JAX package's survival
-    mask ``alive`` comes with ``resilience``, ROADMAP §1 item 3e.)"""
-    speeds = tuple(p.freq_ghz for p in core_points)
+    system-wide fastest for a manycore part.
+
+    ``alive`` (``repro_torch.resilience``) is an optional per-core
+    survival mask: dead cores enter the assignment at speed 0, take zero
+    blocks, and thereby drop out of contention, compute and power the same
+    way an idle core always has.  ``None`` — the fault-free case — is the
+    historical expression, untouched."""
+    speeds = tuple(p.freq_ghz if alive is None or alive[i] else 0.0
+                   for i, p in enumerate(core_points))
     assignment = assign(total_blocks, speeds, strategy)
     active = tuple(i for i, b in enumerate(assignment.blocks_per_core) if b)
     act_speeds = tuple(speeds[i] for i in active)
@@ -161,6 +167,18 @@ def _price_cluster(cfg, name: str, core_points, block: int,
                         extras_b=extras_b, compute_c=compute_c,
                         compute_b=compute_b, instrs_c=instrs_c,
                         instrs_b=instrs_b, power_b=power_b, power_c=power_c)
+
+
+def _resolve_faults(faults, t_ms: float):
+    """``faults=`` → a non-trivial ``FaultState``, or ``None`` when there
+    is nothing to degrade.  ``None`` is the contract with the callers: it
+    means *take the historical code path verbatim* (the empty-trace
+    bit-for-bit pin), not merely "an empty mask"."""
+    if faults is None:
+        return None
+    from repro_torch.resilience.degrade import resolve_state
+    state = resolve_state(faults, t_ms)
+    return None if state.is_trivial else state
 
 
 def _resolve_plan(spec, plan):
@@ -219,9 +237,17 @@ def evaluate(spec: "KernelSpec | str", target: Target | None = None, *,
 
     A target with a ``system_config`` (``Target.system``) is priced by
     ``system.evaluate_system``, before anything else, as in the JAX
-    package.  ``faults`` (a fault trace or state) takes the JAX package's
-    signature and raises ``NotImplementedError`` naming ROADMAP §1 item 3e
-    on either kind of target; ``fault_t_ms`` is read only with ``faults``.
+    package.
+
+    ``faults`` (``repro_torch.resilience``) prices the target *degraded*:
+    a :class:`~repro_torch.resilience.faults.FaultTrace` is sampled at
+    ``fault_t_ms`` (or pass a ``FaultState`` directly), dead cores drop
+    out of scheduling/contention/power via the survival mask, throttled
+    islands are re-pointed down the DVFS ladder, and on system targets a
+    degraded HBM link narrows the arbitrated port.  A trivial state (the
+    empty trace) takes the historical expression verbatim, and an
+    all-cores-dead state raises
+    :class:`~repro_torch.resilience.faults.AllCoresDeadError`.
     """
     spec = kernel(spec)
     if not spec.simulatable:
@@ -241,12 +267,19 @@ def evaluate(spec: "KernelSpec | str", target: Target | None = None, *,
     cfg = target.cluster
 
     core_points = target.core_points
-    if faults is not None:
-        raise NotImplementedError(
-            "evaluate(faults=...): the fault model (resilience/) is not "
-            "ported yet: ROADMAP §1 item 3e")
-    speeds = tuple(p.freq_ghz for p in core_points)
-    f_ref = max(speeds)
+    fstate = _resolve_faults(faults, fault_t_ms)
+    if fstate is None:
+        alive = None
+        speeds = tuple(p.freq_ghz for p in core_points)
+        f_ref = max(speeds)
+    else:
+        from repro_torch.resilience.degrade import (degrade_cluster,
+                                                    masked_speeds,
+                                                    require_survivors)
+        core_points, alive = degrade_cluster(cfg, core_points, fstate)
+        speeds = masked_speeds(core_points, alive)
+        require_survivors(speeds, f"the {cfg.n_cores}-core cluster target")
+        f_ref = max(speeds)
     if plan is None:
         plan_sched = plan_profile = None
         pipelined = True
@@ -264,7 +297,7 @@ def evaluate(spec: "KernelSpec | str", target: Target | None = None, *,
                    total_blocks=total_blocks, strategy=target.strategy):
         if plan is None:
             cp = _price_cluster(cfg, name, core_points, block, total_blocks,
-                                target.strategy, f_ref)
+                                target.strategy, f_ref, alive)
             assignment, active = cp.assignment, cp.active
             act_speeds, act_blocks = cp.act_speeds, cp.act_blocks
             extras_c, extras_b = cp.extras_c, cp.extras_b

@@ -9,7 +9,9 @@ Python loop, and a cache is a list with one entry per period.
 When gradients are on and there is no cache, ``cfg.remat == "full"``
 recomputes each period in the backward pass (``torch.utils.checkpoint``),
 as the JAX package's ``jax.checkpoint`` of its period body does; the
-recompute launches the period's kernels a second time.
+recompute launches the period's kernels a second time.  ``"dots"`` keeps
+the outputs of the period's dense projections (``aten.mm``) and recomputes
+the rest, the JAX package's ``dots_with_no_batch_dims_saveable``.
 
 Sub-layers hold the JAX package's mixers: attention (``"a"``), Mamba
 (``"m"``) or RWKV-6 (``"r"``), then a dense FFN, an MoE FFN or RWKV's
@@ -22,9 +24,12 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import functools
+
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -184,14 +189,33 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int,
                         for _ in range(n_periods)]}
 
 
+#: The ops whose outputs ``remat="dots"`` keeps: products without batch
+#: dimensions.  The dense projections ``x @ w`` (``layers.linear``) reach
+#: the dispatcher as ``aten.mm`` on the folded (B*T, D) input; the
+#: attention einsums and the expert banks, which carry batch dimensions,
+#: reach it as ``aten.bmm`` and are recomputed, as under JAX's
+#: ``dots_with_no_batch_dims_saveable``.
+DOTS_SAVED_OPS = (torch.ops.aten.mm.default,)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in DOTS_SAVED_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat_wrap(cfg: ModelConfig, fn):
-    """``fn`` recomputed in the backward pass for ``remat="full"``."""
+    """``fn`` recomputed in the backward pass: all of it for
+    ``remat="full"``, all but the outputs of ``DOTS_SAVED_OPS`` for
+    ``"dots"``.  The CUDA kernels launch through ctypes into buffers the
+    recompute allocates anew, so the recompute launches them again."""
     if cfg.remat == "full":
         return lambda *args: checkpoint(fn, *args, use_reentrant=False)
     if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (keep the matmul outputs, recompute the rest) is "
-            "not ported to repro_torch yet: ROADMAP.md §1 item 4")
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _dots_policy)
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                        context_fn=context_fn)
     return fn
 
 

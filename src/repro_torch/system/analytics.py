@@ -50,11 +50,16 @@ def evaluate_system(spec, target=None, *, blocks_per_core: int = 1,
     ``api.evaluate`` delegates here for any target with a
     ``system_config``; calling either is the same code path.
 
-    ``faults``/``fault_t_ms`` take the JAX package's signature; the fault
-    model that degrades the part (``resilience``) is not ported yet, so
-    ``faults=`` raises ``NotImplementedError`` naming ROADMAP §1 item 3e.
+    ``faults``/``fault_t_ms`` degrade the part before pricing (see
+    ``api.evaluate``): dead clusters take zero blocks (aggregate speed 0
+    at the top scheduling level), dead cores mask out inside their
+    cluster, throttle caps re-point whole islands, and the HBM
+    degradation multiplier narrows the arbitrated port feeding
+    ``noc.fair_shares``.  A trivial state is the historical path
+    verbatim; a part with no surviving core raises ``AllCoresDeadError``.
     """
-    from repro_torch.api.evaluate import _price_cluster, _simulatable
+    from repro_torch.api.evaluate import (_price_cluster, _resolve_faults,
+                                          _simulatable)
     from repro_torch.api.registry import kernel
     from repro_torch.api.target import Target
     spec = kernel(spec)
@@ -78,12 +83,26 @@ def evaluate_system(spec, target=None, *, blocks_per_core: int = 1,
     name = spec.isa_name
     block = TABLE_I[name].max_block
     cluster_points = system.cluster_core_points(target.point)
-    if faults is not None:
-        raise NotImplementedError(
-            "evaluate_system(faults=...): the fault model (resilience/) is "
-            "not ported yet: ROADMAP §1 item 3e")
-    cluster_speeds = tuple(tuple(p.freq_ghz for p in pts)
-                           for pts in cluster_points)
+    fstate = _resolve_faults(faults, fault_t_ms)
+    if fstate is None:
+        alive_masks = None
+        cluster_speeds = tuple(tuple(p.freq_ghz for p in pts)
+                               for pts in cluster_points)
+    else:
+        from repro_torch.resilience.degrade import (degrade_cluster,
+                                                    degrade_system_hbm,
+                                                    masked_speeds,
+                                                    require_survivors)
+        degraded = [degrade_cluster(cfg, pts, fstate, cluster=i)
+                    for i, (cfg, pts) in enumerate(zip(system.clusters,
+                                                       cluster_points))]
+        cluster_points = tuple(pts for pts, _ in degraded)
+        alive_masks = tuple(mask for _, mask in degraded)
+        cluster_speeds = tuple(masked_speeds(pts, mask)
+                               for pts, mask in degraded)
+        require_survivors([s for sp in cluster_speeds for s in sp],
+                          f"the {system.n_clusters}-cluster system target")
+        system = degrade_system_hbm(system, fstate)
     speeds_all = tuple(s for sp in cluster_speeds for s in sp)
     f_ref = max(s for s in speeds_all if s > 0)
     if total_blocks is None:
@@ -101,10 +120,12 @@ def evaluate_system(spec, target=None, *, blocks_per_core: int = 1,
         shares = sys_assign.cluster_blocks
         passes = [
             _price_cluster(cfg, name, pts, block, share, target.strategy,
-                           f_ref)
+                           f_ref,
+                           None if alive_masks is None else alive_masks[i])
             if share else None
-            for cfg, pts, share in zip(system.clusters, cluster_points,
-                                       shares)]
+            for i, (cfg, pts, share) in enumerate(zip(system.clusters,
+                                                      cluster_points,
+                                                      shares))]
         cluster_bytes = tuple(kernel_bytes(name, block * share)
                               for share in shares)
         transfers = system_transfer_cycles(system, cluster_bytes)

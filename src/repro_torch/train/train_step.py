@@ -1,5 +1,6 @@
 """The training step: microbatched gradient accumulation, global-norm
-clipping and AdamW, as the JAX package's ``repro.train.train_step``.
+clipping, AdamW and optional int8 gradient compression, as the JAX
+package's ``repro.train.train_step``.
 
 The JAX package keeps fp32 master parameters and casts them once per
 forward pass to the compute dtype; the gradient of a master is the
@@ -15,6 +16,7 @@ working parameter.
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 
 import torch
@@ -22,6 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import (LMModel, load_params, loss_fn,
                                       working_dtype)
+from repro_torch.parallel.compress import quantize_dequantize
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          init_opt_state)
 
@@ -95,6 +98,29 @@ def init_train_state(cfg: ModelConfig, params: LMModel) -> TrainState:
                       opt=init_opt_state(masters, cfg.opt_state_dtype))
 
 
+#: A layer period's parameter name; the JAX tree stacks ``<rest>`` over the
+#: periods into one leaf.
+_PERIOD_NAME = re.compile(r"^stack\.periods\.\d+\.")
+
+
+def compress_grads(grads: dict[str, torch.Tensor],
+                   params: dict[str, torch.Tensor]) -> dict:
+    """Every fp32 gradient round-tripped through int8 and cast to its
+    master's dtype, with one scale per leaf of the JAX package's parameter
+    tree: the periods' copies of one parameter share the largest
+    ``max|g|`` among them, as their stacked leaf has it in JAX."""
+    def leaf(name):
+        return _PERIOD_NAME.sub("stack.periods.", name)
+
+    amax: dict[str, torch.Tensor] = {}
+    for k, g in grads.items():
+        m = g.abs().amax()
+        amax[leaf(k)] = torch.maximum(amax[leaf(k)], m) \
+            if leaf(k) in amax else m
+    return {k: quantize_dequantize(g, amax[leaf(k)])[0].to(params[k].dtype)
+            for k, g in grads.items()}
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     n_microbatches: int = 1, compress_pod_grads: bool = False):
     """Returns ``train_step(state, batch) -> (state, metrics)``, which
@@ -106,11 +132,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     so that one microbatch's activations are alive at a time.  Metrics are
     0-d tensors: ``loss``, ``nll``, ``aux``, ``zloss``, ``ppl`` (means over
     the microbatches), ``lr`` and ``grad_norm``.
+
+    ``compress_pod_grads`` round-trips every gradient through int8
+    (``compress_grads``) before AdamW, as the JAX package emulates the
+    compressed cross-pod all-reduce payload on one device; ``grad_norm``
+    is then the compressed gradients' norm.
     """
-    if compress_pod_grads:
-        raise NotImplementedError(
-            "compress_pod_grads: int8 cross-pod gradient compression comes "
-            "with parallel/, ROADMAP.md §1 item 4")
 
     def grads_of(model: LMModel, batch: dict):
         names, params = zip(*model.named_parameters())
@@ -151,6 +178,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
     def train_step(state: TrainState, batch: dict):
         loss, metrics, grads = compute_grads(state.model, batch)
+        if compress_pod_grads:
+            grads = compress_grads(grads, state.params)
         opt_metrics = adamw_update(opt_cfg, state.params, grads, state.opt)
         del grads
         state.sync_working_copy()

@@ -196,8 +196,31 @@ class TestErrors:
          "3d"),
         (dict(faults=object()), "3e")])
     def test_later_items_raise_naming_the_roadmap_item(self, kw, item):
-        """``faults=`` waits for item 3e.  ``plan=`` came with the tuner
-        (item 3d): a tuner candidate gives the JAX package's ``Report``."""
+        """``plan=`` came with the tuner (item 3d): a tuner candidate gives
+        the JAX package's ``Report``.  ``faults=`` came with the fault
+        model (item 3e): a fault state gives the JAX package's degraded
+        ``Report``, and an object that is neither a trace nor a state
+        raises the JAX package's ``TypeError``."""
+        if item == "3e":
+            from repro import resilience as jres
+
+            from repro_torch import resilience
+            for name, target in (("expf", "default"), ("logf", "islands")):
+                mine = api.evaluate(name, TARGETS[target], total_blocks=5,
+                                    faults=resilience.FaultState(
+                                        dead_cores=((0, 1),),
+                                        freq_caps=((0, 0.75),)))
+                theirs = japi.evaluate(name, JTARGETS[target],
+                                       total_blocks=5,
+                                       faults=jres.FaultState(
+                                           dead_cores=((0, 1),),
+                                           freq_caps=((0, 0.75),)))
+                assert_reports_equal(mine, theirs)
+            for a in (api, japi):
+                with pytest.raises(TypeError, match="FaultTrace or "
+                                   "FaultState"):
+                    a.evaluate("expf", a.Target(), **kw)
+            return
         if item == "3d":
             from repro import tune as jtune
             from repro_torch import tune
@@ -215,16 +238,23 @@ class TestErrors:
 
     def test_system_target_raises_naming_the_roadmap_item(self):
         """A system target, which raised until the manycore model was
-        ported, gives the JAX package's ``Report``; ``faults=`` on it
-        still raises, naming 3e."""
+        ported, gives the JAX package's ``Report``, and since the fault
+        model was ported also under ``faults=``: a dead cluster and a
+        narrowed HBM port give the JAX package's degraded ``Report``."""
         t = api.Target.system("2x8c,hbm=256")
         assert t.n_clusters == 2 and t.n_cores == 16
         jt = japi.Target.system("2x8c,hbm=256")
         assert plain(t.system_config) == plain(jt.system_config)
         assert_reports_equal(api.evaluate("expf", t),
                              japi.evaluate("expf", jt))
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP §1 item 3e"):
+        from repro import resilience as jres
+
+        from repro_torch import resilience
+        for kw in (dict(dead_clusters=(1,)), dict(hbm_scale=0.25)):
+            assert_reports_equal(
+                api.evaluate("expf", t, faults=resilience.FaultState(**kw)),
+                japi.evaluate("expf", jt, faults=jres.FaultState(**kw)))
+        with pytest.raises(TypeError, match="FaultTrace or FaultState"):
             api.evaluate("expf", t, faults=object())
 
     def test_target_validation_matches(self):

@@ -149,6 +149,7 @@ _IMPORT_ALL = (
     "import repro_torch.api, repro_torch.core, repro_torch.kernels.ops\n"
     "import repro_torch.cluster, repro_torch.system, repro_torch.perf\n"
     "import repro_torch.obs, repro_torch.cluster.analytics\n"
+    "import repro_torch.serve, repro_torch.resilience\n"
     "assert repro_torch.api.kernel('logf').op.startswith('repro_torch.')\n"
     "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
     " 'repro_torch.')]\n"
@@ -156,7 +157,7 @@ _IMPORT_ALL = (
     "bad = sorted(m for m in sys.modules if forbidden(m))\n"
     "print(len(mods), bad)\n"
     "print(*mods)\n"
-    "sys.exit(1 if bad or len(mods) < 91 else 0)\n")
+    "sys.exit(1 if bad or len(mods) < 100 else 0)\n")
 
 
 def _import_all(forbidden: str) -> list[str]:
@@ -182,8 +183,28 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "obs.session", "obs.export", "obs.attrib", "obs.history",
               "obs.report", "obs.trace", "cluster.analytics", "system.noc",
               "system.scheduler", "system.analytics",
-              "configs.deepseek_moe_16b", "configs.rwkv6_1_6b"):
+              "configs.deepseek_moe_16b", "configs.rwkv6_1_6b",
+              "resilience", "resilience.faults", "resilience.degrade",
+              "resilience.failover", "serve.traffic", "serve.sim",
+              "serve.policies", "parallel", "parallel.compress"):
         assert f"repro_torch.{m}" in mods, m
+
+
+def test_the_simulator_imports_no_model_code():
+    """``import repro_torch.serve`` (the simulator, as the JAX package's
+    ``repro.serve``) loads no ``repro_torch.models`` module and not the
+    decode engine."""
+    code = ("import sys\n"
+            "from repro_torch.serve import simulate, make_faults\n"
+            "bad = sorted(m for m in sys.modules if m.startswith(("
+            "'repro_torch.models', 'repro_torch.serve.engine', 'jax', "
+            "'repro.')) or m == 'repro')\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_port_does_not_import_msgpack():

@@ -8,7 +8,8 @@ bit for bit the single-cluster ``Report``; strong scaling of the
 compute-only kernel is exactly linear; the shared-HBM roofline flattens the
 curve; block conservation and HBM monotonicity hold over drawn cluster
 shapes.  Mirrors ``tests/test_system_model.py`` (but its serving-simulator
-and benchmark-harness classes: the simulator is not ported yet) and
+class, held by ``tests/test_torch_serve_sim.py``, and its
+benchmark-harness class: ``benchmarks/`` is not ported) and
 ``tests/test_system_properties.py``."""
 
 import math
@@ -156,8 +157,27 @@ class TestSystemScaling:
                 ev("softmax", a.Target.system(2))
 
     def test_faults_raise_naming_the_roadmap_item(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3e"):
-            evaluate_system("expf", api.Target.system(2), faults=object())
+        """``evaluate_system(faults=...)``, which raised until the fault
+        model was ported, degrades the part as the JAX package does: a
+        dead core, a throttled island and a narrowed port; an all-dead
+        part raises ``AllCoresDeadError``."""
+        from repro import resilience as jres
+
+        from repro_torch import resilience
+        t, jt = api.Target.system(2, hbm_bytes_per_cycle=64.0), \
+            japi.Target.system(2, hbm_bytes_per_cycle=64.0)
+        base = evaluate_system("montecarlo", t, total_blocks=48)
+        for kw in (dict(dead_cores=((1, 3),)), dict(freq_caps=((0, 0.6),)),
+                   dict(hbm_scale=0.5)):
+            mine = evaluate_system("montecarlo", t, total_blocks=48,
+                                   faults=resilience.FaultState(**kw))
+            assert_reports_equal(mine, jsystem.evaluate_system(
+                "montecarlo", jt, total_blocks=48,
+                faults=jres.FaultState(**kw)))
+            assert mine.cycles_copift >= base.cycles_copift
+        with pytest.raises(resilience.AllCoresDeadError):
+            evaluate_system("expf", t, faults=resilience.FaultState(
+                dead_clusters=(0, 1)))
 
     def test_default_target_is_the_lone_cluster(self):
         assert_reports_equal(evaluate_system("expf"),

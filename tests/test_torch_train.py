@@ -1,14 +1,17 @@
 """The port's training path on the CPU against the JAX package, on olmo-1b
 smoke (and gemma-2b smoke where norm gains matter): ``loss_fn`` and every
 parameter's gradient against ``jax.value_and_grad`` through the JAX
-reference path, with and without rematerialisation, also for the MoE
+reference path, with and without rematerialisation (``remat="full"`` and
+``"dots"``, whose saved ops are listed), also for the MoE
 (deepseek: the auxiliary loss enters the loss), Mamba-hybrid (jamba),
 RWKV-6 and audio-encoder (hubert: per-frame labels) families; the softmax
 and exp ``autograd.Function``s against ``jax.vjp`` of the reference;
 ``adamw_update`` and ``lr_at``; three steps of ``make_train_step`` (1 and 2
 microbatches, fp32 and bf16 compute; jamba in fp32) against the JAX loss
-trajectory; the ``NotImplementedError``s
-of what is not ported; the ``launch.train`` entry point.
+trajectory, also with int8 gradient compression
+(``compress_pod_grads``; ``parallel.compress`` bit-equal to the JAX
+package's); the ``NotImplementedError``s of what is not ported; the
+``launch.train`` entry point.
 
 Tolerances: loss rtol 1e-5, gradients rtol 1e-4 / atol 1e-6 (fp32 sums in
 another order; the port's analytic softmax/exp backward against JAX's
@@ -96,9 +99,9 @@ def _port_loss_and_grads(cfg, np_params, toks):
 
 class TestLossAndGrads:
     @pytest.mark.parametrize("remat,ce_chunk", [("none", 256), ("full", 256),
-                                                ("full", 8)],
+                                                ("full", 8), ("dots", 256)],
                              ids=["remat-none", "remat-full",
-                                  "remat-full-ce-chunks"])
+                                  "remat-full-ce-chunks", "remat-dots"])
     def test_match_jax(self, olmo, monkeypatch, remat, ce_chunk):
         """ce_chunk 8 over 20 targets: two chunks and a remainder of 4."""
         jcfg, jparams, cfg = olmo
@@ -116,14 +119,18 @@ class TestLossAndGrads:
             _close(g, jg[name], 1e-4, 1e-6, name)
 
     def test_remat_grads_bit_equal(self, olmo):
+        """The recompute is the forward again: ``full`` and ``dots`` give
+        ``none``'s loss and gradients bit for bit."""
         jcfg, jparams, cfg = olmo
         toks = _tokens(cfg, 2, 17, seed=3)
-        _, _, none = _port_loss_and_grads(cfg.replace(remat="none"),
-                                          _np(jparams), toks)
-        _, _, full = _port_loss_and_grads(cfg.replace(remat="full"),
-                                          _np(jparams), toks)
-        for name, g in none.items():
-            assert torch.equal(g, full[name]), name
+        loss, _, none = _port_loss_and_grads(cfg.replace(remat="none"),
+                                             _np(jparams), toks)
+        for remat in ("full", "dots"):
+            l2, _, grads = _port_loss_and_grads(cfg.replace(remat=remat),
+                                                _np(jparams), toks)
+            assert l2 == loss, remat
+            for name, g in none.items():
+                assert torch.equal(g, grads[name]), (remat, name)
 
     def test_chunked_attention_grads_match_jax(self, olmo, monkeypatch):
         """Lowered thresholds send training down the chunked attention
@@ -359,15 +366,17 @@ class TestAdamW:
         _close(got, want, 1e-6, 0)
 
 
-def _trajectories(jcfg, cfg, n_micro, steps=3, B=4, T=17):
+def _trajectories(jcfg, cfg, n_micro, steps=3, B=4, T=17, compress=False):
     jparams = jax.jit(lambda k: jmodel.init_params(jcfg, k))(
         jax.random.PRNGKey(3))
     jstate = jstep.init_train_state(jcfg, jparams)
     c = jopt.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=steps)
-    jfn = jax.jit(jstep.make_train_step(jcfg, c, n_microbatches=n_micro))
+    jfn = jax.jit(jstep.make_train_step(jcfg, c, n_microbatches=n_micro,
+                                        compress_pod_grads=compress))
     state = train_state_from_jax(_np(jstate), cfg, "cpu")
     fn = make_train_step(cfg, topt.AdamWConfig(**vars(c)),
-                         n_microbatches=n_micro)
+                         n_microbatches=n_micro,
+                         compress_pod_grads=compress)
     want, got = [], []
     for s in range(steps):
         toks = _tokens(cfg, B, T, seed=10 + s)
@@ -433,20 +442,164 @@ class TestTrainStep:
             fn(state, {"tokens": torch.zeros((3, 9), dtype=torch.int32)})
 
 
-class TestNotPorted:
-    def test_compress_pod_grads(self, olmo):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
-            make_train_step(olmo[2], topt.AdamWConfig(),
-                            compress_pod_grads=True)
+class TestCompress:
+    """``parallel.compress`` against the JAX package's
+    ``repro.parallel.compress``, bit for bit."""
 
-    def test_remat_dots(self, olmo):
-        _, _, cfg = olmo
-        cfg = cfg.replace(remat="dots")
-        model = tmodel.init_params(cfg, torch.Generator().manual_seed(0),
-                                   "cpu")
+    @staticmethod
+    def _inputs():
+        rng = np.random.default_rng(7)
+        # max |g| 127 makes the scale exactly 1, so g / scale = k / 2
+        ties = np.append(np.arange(-20, 21, dtype=np.float32) * 0.5, 127.0)
+        return {
+            "seeded": rng.standard_normal((64, 33)).astype(np.float32) * 3,
+            "zeros": np.zeros((5, 7), np.float32),
+            "ties": ties.astype(np.float32),
+            "tiny": rng.standard_normal(999).astype(np.float32) * 1e-20,
+            "scalar": np.array(-2.5, dtype=np.float32),
+        }
+
+    @pytest.mark.parametrize("case", ["seeded", "zeros", "ties", "tiny",
+                                      "scalar"])
+    def test_quantize_dequantize_bit_equal(self, case):
+        from repro.parallel import compress as jc
+
+        from repro_torch.parallel import compress as tc
+        x = self._inputs()[case]
+        g_hat, resid = tc.quantize_dequantize(torch.from_numpy(x))
+        jg, jr = jc.quantize_dequantize(jnp.asarray(x))
+        assert g_hat.dtype == resid.dtype == torch.float32
+        np.testing.assert_array_equal(g_hat.numpy(), np.asarray(jg))
+        np.testing.assert_array_equal(resid.numpy(), np.asarray(jr))
+        if case == "ties":   # half to even: 0.5 -> 0, 1.5 -> 2, -2.5 -> -2
+            np.testing.assert_array_equal(
+                g_hat.numpy()[:-1], np.round(x[:-1]))
+            assert x[[21, 23, 25]].tolist() == [0.5, 1.5, 2.5]
+            assert g_hat.numpy()[[21, 23, 25]].tolist() == [0.0, 2.0, 2.0]
+
+    def test_bf16_gradient_is_quantized_in_fp32(self):
+        from repro.parallel import compress as jc
+
+        from repro_torch.parallel import compress as tc
+        x = np.random.default_rng(2).standard_normal(300).astype(np.float32)
+        g = torch.from_numpy(x).to(torch.bfloat16)
+        jg = jnp.asarray(x).astype(jnp.bfloat16)
+        g_hat, resid = tc.quantize_dequantize(g)
+        want = jc.quantize_dequantize(jg.astype(jnp.float32))
+        np.testing.assert_array_equal(g_hat.numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(resid.numpy(), np.asarray(want[1]))
+
+    def test_error_feedback_residuals(self):
+        """Two steps of ``ef_compress`` over a dict tree: the compressed
+        gradients and the carried residuals equal the JAX package's."""
+        from repro.parallel import compress as jc
+
+        from repro_torch.parallel import compress as tc
+        rng = np.random.default_rng(4)
+        steps = [{"a": rng.standard_normal((8, 5)).astype(np.float32),
+                  "b": [rng.standard_normal(11).astype(np.float32)]}
+                 for _ in range(2)]
+        e = tc.ef_init({"a": torch.zeros(8, 5), "b": [torch.zeros(11)]})
+        je = jc.ef_init({"a": jnp.zeros((8, 5)), "b": [jnp.zeros(11)]})
+        for g in steps:
+            tg = {"a": torch.from_numpy(g["a"]),
+                  "b": [torch.from_numpy(g["b"][0])]}
+            g_hat, e = tc.ef_compress(tg, e)
+            jg_hat, je = jc.ef_compress(jax.tree.map(jnp.asarray, g), je)
+            for got, want in ((g_hat, jg_hat), (e, je)):
+                np.testing.assert_array_equal(got["a"].numpy(),
+                                              np.asarray(want["a"]))
+                np.testing.assert_array_equal(got["b"][0].numpy(),
+                                              np.asarray(want["b"][0]))
+        assert isinstance(e["b"], list)
+        assert float(e["a"].abs().max()) > 0
+
+    def test_periods_share_their_stacked_leaf_scale(self):
+        """The JAX tree stacks a period's parameters over the periods into
+        one leaf, whose one int8 scale the port's per-period tensors must
+        share: ``compress_grads`` equals ``quantize_dequantize`` of the
+        stacked leaf, and the unstacked leaves keep their own scale."""
+        from repro.parallel import compress as jc
+
+        from repro_torch.train.train_step import compress_grads
+        rng = np.random.default_rng(9)
+        per = [rng.standard_normal((4, 6)).astype(np.float32) * s
+               for s in (50.0, 1.0, 0.01)]
+        emb = rng.standard_normal((5, 3)).astype(np.float32)
+        grads = {f"stack.periods.{i}.sub0.attn.q.w": torch.from_numpy(g)
+                 for i, g in enumerate(per)}
+        grads["embed.table"] = torch.from_numpy(emb)
+        params = {k: torch.zeros(g.shape) for k, g in grads.items()}
+        out = compress_grads(grads, params)
+        stacked = np.asarray(jc.quantize_dequantize(jnp.asarray(
+            np.stack(per)))[0])
+        for i in range(3):
+            np.testing.assert_array_equal(
+                out[f"stack.periods.{i}.sub0.attn.q.w"].numpy(), stacked[i])
+        assert not out["stack.periods.2.sub0.attn.q.w"].any()
+        np.testing.assert_array_equal(out["embed.table"].numpy(), np.asarray(
+            jc.quantize_dequantize(jnp.asarray(emb))[0]))
+
+    def test_compressed_psum_raises_naming_item_4(self):
+        from repro_torch.parallel import compress as tc
         with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
-            tmodel.loss_fn(model, cfg,
-                           {"tokens": torch.zeros((1, 5), dtype=torch.int32)})
+            tc.compressed_psum(torch.ones(3), "pod")
+
+
+class TestNotPorted:
+    def test_compress_pod_grads(self):
+        """``make_train_step(compress_pod_grads=True)``, which raised until
+        ``parallel.compress`` was ported: three steps of the olmo smoke
+        model against the JAX package's compressed step at the fp32
+        trajectory tolerances; the first loss equals the uncompressed
+        step's (compression acts after the gradient), its grad norm does
+        not."""
+        jcfg = jax_load_config("olmo-1b", "smoke")
+        cfg = load_config("olmo-1b", "smoke")
+        want, got, jstate, state = _trajectories(jcfg, cfg, 1,
+                                                 compress=True)
+        for s, (w, g) in enumerate(zip(want, got)):
+            for k in ("loss", "nll", "zloss", "grad_norm", "lr"):
+                _close(g[k], w[k], 1e-4, 0, f"step {s} {k}")
+        for name, p in state_dict_from_jax(_np(jstate["params"])).items():
+            got_p = state.params[name].numpy()
+            far = ~np.isclose(got_p, p, rtol=1e-4, atol=1e-6)
+            assert far.mean() <= 1e-3, (name, far.sum())
+            assert np.abs(got_p - p).max() <= 1e-2, name      # lr
+        _, uncompressed, _, _ = _trajectories(jcfg, cfg, 1, steps=1)
+        assert got[0]["loss"] == uncompressed[0]["loss"]
+        assert got[0]["grad_norm"] != uncompressed[0]["grad_norm"]
+
+    def test_remat_dots(self, olmo, monkeypatch):
+        """``remat="dots"``, which raised until it was ported, saves the
+        outputs of the period's dense projections and nothing else: on
+        the olmo smoke model (2 layers, D 64, 4 heads of 16, 2 KV heads,
+        FFN 128) the forward marks 7 ``aten.mm`` a layer to save, q and
+        o (64 x 64), k and v (64 x 32), gate and up (64 x 128) and down
+        (128 x 64) on the 2 x 17 tokens, and no ``aten.bmm`` (the
+        attention einsums carry batch dimensions)."""
+        from repro_torch.models import transformer
+        saved = []
+        policy = transformer._dots_policy
+
+        def spy(ctx, op, *args, **kwargs):
+            decision = policy(ctx, op, *args, **kwargs)
+            if not ctx.is_recompute and \
+                    decision == transformer.CheckpointPolicy.MUST_SAVE:
+                saved.append((str(op), tuple(tuple(a.shape) for a in args)))
+            return decision
+
+        monkeypatch.setattr(transformer, "_dots_policy", spy)
+        _, jparams, cfg = olmo
+        _port_loss_and_grads(cfg.replace(remat="dots"), _np(jparams),
+                             _tokens(cfg, 2, 17, seed=3))
+        per_layer = sorted([((34, 64), (64, 64))] * 2
+                           + [((34, 64), (64, 32))] * 2
+                           + [((34, 64), (64, 128))] * 2
+                           + [((34, 128), (128, 64))])
+        assert sorted(shapes for _, shapes in saved) == \
+            sorted(per_layer * cfg.n_layers)
+        assert {op for op, _ in saved} == {"aten.mm.default"}
 
     def test_autotune(self, capsys, tmp_path, monkeypatch):
         """``--autotune`` turns the tuned tilings on and prints the JAX
