@@ -4,9 +4,11 @@
   python3 chip_smoke.py
   python3 chip_smoke.py --phase 6     # build, then phase 6 alone
   python3 chip_smoke.py --phase 11    # build, then phase 11 alone
+  python3 chip_smoke.py --phase 12    # build, then phase 12 alone
 
 Phases, each of which raises on failure (the script then exits non-zero
-and prints no result line):
+and prints no result line).  Every line printed also goes to
+``chiprun_out/chip_smoke.log``:
 
 1. The card's name and power limit (``nvidia-smi``), its SM count and
    maximum SM clock (from which the FP32 and INT32 rates follow), then
@@ -45,7 +47,9 @@ and prints no result line):
    exp's and logf's chunk 512 float4s), each launch counted at its plan's
    block size, each output bit for bit the default's; device ms and threads
    printed (``tiling:`` lines).
-   One JSON line ``{"kernels": [...]}`` at the end.
+   The kernels' full entries go to ``chiprun_out/kernels.json``; a compact
+   JSON line ``{"kernels": [...]}`` (each kernel's headline numbers and
+   its launches in every phase) is printed at the end.
 3. A reference check: the olmo-1b smoke model on the card (kernels) against
    the same parameters on the CPU (plain versions).
 4. OLMo-1B at full width, random weights from a seeded ``torch.Generator``,
@@ -224,7 +228,27 @@ and prints no result line):
         beside the card's name and power limit.
    The JSON line's ``launches_remat_dots`` (softmax, exp, uniform) are
    (c)'s ``dots`` run's.
-12. The last line: ``{"ok": true, "device": {...}}``.
+12. The sharding rule table on DTensor (``sharding_phase``):
+    (a) a one-process NCCL group (TCP on a free local port) and a (1, 1)
+        ("data", "model") mesh; OLMo-1B at full width, batch 4 x seq 2048,
+        ``remat="full"``, 3 steps unsharded (``make_train_step``) and 3
+        through ``launch.dryrun._step_and_specs`` with every state tensor
+        and batch placed by the rule table as DTensors, from the same
+        seed: losses and grad norms equal (rtol 1e-4; whether bit-equal
+        is printed), softmax 32 launches a step on its cluster path and
+        uniform 2, through the DTensor route (each kernel on the local
+        shard); ms a step and peak memory of both, and the collectives
+        of one more sharded step (``launch.comm_analysis``);
+    (c) on the same mesh, ``compressed_psum`` bit-equal to
+        ``quantize_dequantize`` over one rank, and ``elastic_restore``
+        onto the mesh reproducing a saved olmo-1b smoke state;
+    (b) then, the NCCL group destroyed, the dry-run's fake world on the
+        card's host: ``run_cell`` of olmo-1b x train_4k x pod and
+        deepseek-moe-16b x decode_32k x multipod, the records printed
+        with their wall time.
+    The JSON line's ``launches_sharded`` (softmax, exp, uniform) are (a)'s
+    sharded run's.
+13. The last line: ``{"ok": true, "device": {...}}``.
 
 Phase 2 also times an empty kernel at the uniform kernel's grids
 (``tools/launch_floor.py``, built beside the kernels): the card's floor
@@ -2747,15 +2771,206 @@ def sim_resilience_phase(torch, smi) -> dict:
     return launches
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _sharded_runs(torch, smi, mesh) -> dict:
+    """(a): OLMo-1B trained 3 steps unsharded, then 3 through the rule
+    table's placements on ``mesh``.  Returns the sharded run's launches."""
+    from repro_torch.configs import load_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.comm_analysis import StepCounter
+    from repro_torch.parallel.sharding import ShardingRules, distribute
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_step
+
+    steps = 3
+    cfg = load_config("olmo-1b", "full").replace(remat="full")
+    shape = ShapeConfig("sharded", 2048, 4, "train")
+    pipe = TokenPipeline(cfg, shape, device="cuda")
+    rules = ShardingRules(cfg, mesh, shape)
+    bspec = rules.batch_spec(shape)
+
+    def train(fn, state, place_batch):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run():
+            rows, secs = [], []
+            for step in range(steps):
+                t0 = time.perf_counter()
+                _, m = fn(state, place_batch(pipe.host_batch_at(step)))
+                rows.append({k: float(m[k].full_tensor()
+                                      if hasattr(m[k], "full_tensor")
+                                      else m[k])
+                             for k in ("loss", "grad_norm")})
+                secs.append(time.perf_counter() - t0)
+            return rows, secs
+
+        (rows, secs), launches, paths, _ = _main_path_run(torch, run)
+        return rows, secs, launches, paths, torch.cuda.max_memory_allocated()
+
+    torch.cuda.empty_cache()
+    state = _full_state(torch, cfg)
+    plain = train(make_train_step(cfg, AdamWConfig()), state, lambda b: b)
+    del state
+    torch.cuda.empty_cache()
+    fn, _, place = dryrun._step_and_specs(cfg, shape, rules, mesh)
+    state, _ = place((_full_state(torch, cfg), pipe.host_batch_at(0)))
+
+    def place_batch(b):
+        return {k: distribute(v, bspec + (None,) * (v.ndim - 2), mesh)
+                for k, v in b.items()}
+
+    sharded = train(fn, state, place_batch)
+    with StepCounter() as counter:
+        fn(state, place_batch(pipe.host_batch_at(steps)))
+    torch.cuda.synchronize()
+    del state
+    torch.cuda.empty_cache()
+
+    (prow, psecs, _, _, ppeak), (srow, ssecs, launches, paths, speak) = \
+        plain, sharded
+    for a, b in zip(srow, prow):
+        for k in ("loss", "grad_norm"):
+            if not math.isclose(a[k], b[k], rel_tol=1e-4):
+                _fail(f"(a): sharded {k} {a[k]!r} vs unsharded {b[k]!r}")
+    if launches["softmax"] != 32 * steps or launches["uniform"] != 2 * steps:
+        _fail(f"(a): launches {launches} in {steps} sharded steps, not "
+              "softmax 32 and uniform 2 a step")
+    _only_path("(a) sharded", paths["softmax"], "cluster")
+    print("sharded (a):", json.dumps(dict(
+        phase="a: OLMo-1B full width, batch 4 x seq 2048, bf16 compute, "
+              "fp32 masters, remat full, on a (1, 1) NCCL mesh through the "
+              "rule table's DTensor placements, against the unsharded step",
+        card=smi, steps=steps, use_tp=rules.use_tp, fsdp=rules.fsdp,
+        dp_axes=rules.dp_axes, batch_spec=bspec,
+        ms_per_step=statistics.median(ssecs[1:]) * 1e3,
+        ms_per_step_all=[t * 1e3 for t in ssecs],
+        unsharded_ms_per_step=statistics.median(psecs[1:]) * 1e3,
+        unsharded_ms_per_step_all=[t * 1e3 for t in psecs],
+        peak_memory_gb=speak / 1e9, unsharded_peak_memory_gb=ppeak / 1e9,
+        losses=[r["loss"] for r in srow],
+        unsharded_losses=[r["loss"] for r in prow],
+        grad_norms=[r["grad_norm"] for r in srow],
+        unsharded_grad_norms=[r["grad_norm"] for r in prow],
+        losses_bit_equal=[a["loss"] == b["loss"] for a, b in zip(srow, prow)],
+        grad_norms_bit_equal=[a["grad_norm"] == b["grad_norm"]
+                              for a, b in zip(srow, prow)],
+        launches_per_step={k: v / steps for k, v in launches.items()},
+        path_launches_per_step={k: {p: v / steps for p, v in by.items()}
+                                for k, by in paths.items()},
+        collectives_one_step=counter.collective_bytes())))
+    return launches
+
+
+def _collectives_and_restore(torch, smi, mesh) -> None:
+    """(c): ``compressed_psum`` and ``elastic_restore`` on ``mesh``."""
+    from repro_torch.configs import load_config
+    from repro_torch.models.model import init_params
+    from repro_torch.parallel.compress import (compressed_psum,
+                                               quantize_dequantize)
+    from repro_torch.parallel.sharding import ShardingRules
+    from repro_torch.train.fault import CheckpointManager, elastic_restore
+    from repro_torch.train.train_step import (distribute_train_state,
+                                              init_train_state)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    g = torch.randn(4096, 1024, generator=gen, device="cuda")
+    got = compressed_psum(g, mesh.get_group("data"))
+    if not torch.equal(got, quantize_dequantize(g)[0]):
+        _fail("(c): compressed_psum over one rank differs from "
+              "quantize_dequantize")
+    cfg = load_config("olmo-1b", "smoke")
+
+    def smoke_state(seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return init_train_state(cfg, init_params(
+            cfg.replace(dtype=cfg.param_dtype), gen, "cuda"))
+
+    d = ROOT / "build" / "chip_smoke_restore"
+    shutil.rmtree(d, ignore_errors=True)
+    saved = distribute_train_state(smoke_state(1),
+                                   ShardingRules(cfg, mesh)).state_dict()
+    manager = CheckpointManager(str(d), async_save=False)
+    manager.save(7, saved)
+    state, step = elastic_restore(manager, lambda device: smoke_state(0),
+                                  "cuda", mesh=mesh, cfg=cfg)
+    restored = state.state_dict()
+    same = step == 7 and all(torch.equal(restored[k].full_tensor(),
+                                         v.full_tensor())
+                             for k, v in saved.items())
+    shutil.rmtree(d, ignore_errors=True)
+    if not same:
+        _fail("(c): elastic_restore did not reproduce the saved state")
+    print("sharded (c):", json.dumps(dict(
+        phase="c: compressed_psum over the mesh's data group (one rank) "
+              "against quantize_dequantize; elastic_restore of an olmo-1b "
+              "smoke state onto the mesh", card=smi,
+        psum_elements=g.numel(), psum_bit_equal=True,
+        restored_tensors=len(restored), restored_equal=True, step=step)))
+
+
+def _dryrun_cells(smi) -> None:
+    """(b): two cells of the dry-run in its fake world, on the host."""
+    from repro_torch.launch import dryrun
+    for arch, shape, mesh in (("olmo-1b", "train_4k", "pod"),
+                              ("deepseek-moe-16b", "decode_32k",
+                               "multipod")):
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, mesh)
+        print("sharded (b):", json.dumps(dict(
+            rec, phase="b: launch.dryrun.run_cell in a fake world of "
+                       f"{rec['devices']} ranks, on the card's host",
+            card=smi, wall_s=time.perf_counter() - t0)))
+
+
+def sharding_phase(torch, smi) -> dict:
+    """Phase 12.  Returns (a)'s sharded run's launches."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        launches = _sharded_runs(torch, smi, mesh)
+        _collectives_and_restore(torch, smi, mesh)
+    finally:
+        dist.destroy_process_group()
+    _dryrun_cells(smi)
+    print(f"sharding: phase wall time {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _compact(entries) -> list:
+    """Each kernel's headline numbers and launches in every phase, in a
+    line of a few kilobytes (the full entries go to ``kernels.json``)."""
+    keep = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return [dict({k: e[k] for k in keep},
+                 **{k: v for k, v in e.items() if k.startswith("launches_")})
+            for e in entries]
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port "
                                  "on one NVIDIA GPU (phases 1 to 12).")
-    ap.add_argument("--phase", type=int, choices=(6, 11),
+    ap.add_argument("--phase", type=int, choices=(6, 11, 12),
                     help="build the kernels, then run only phase 6 "
-                         "(training) or 11 (the serving simulator, "
-                         "resilience, remat='dots' and compression); no "
-                         "result line is printed")
+                         "(training), 11 (the serving simulator, "
+                         "resilience, remat='dots' and compression) or 12 "
+                         "(the sharding rule table on DTensor); no result "
+                         "line is printed")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2766,6 +2981,17 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    # Every line printed here also goes to the log, for a caller that keeps
+    # only the end of the output.
+    with open(out / "chip_smoke.log", "w") as log, \
+            contextlib.redirect_stdout(_Tee(sys.stdout, log)):
+        return _drive(args, torch, out)
+
+
+def _drive(args, torch, out: Path) -> int:
+    """The phases, after ``main``'s checks."""
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2778,7 +3004,8 @@ def main(argv=None) -> int:
     if args.phase is not None:
         t_build = _build.build_all()
         print(f"kernels built in {t_build:.1f} s into {_build.BUILD_DIR}")
-        run = {6: train_phase, 11: sim_resilience_phase}[args.phase]
+        run = {6: train_phase, 11: sim_resilience_phase,
+               12: sharding_phase}[args.phase]
         print(f"phase {args.phase} alone: launches",
               json.dumps(run(torch, smi)))
         return 0
@@ -2803,9 +3030,11 @@ def main(argv=None) -> int:
     sys_served, sys_tilings = obs_system_phase(torch, smi, serve_state)
     del serve_state
     remat_dots = sim_resilience_phase(torch, smi)
+    sharded = sharding_phase(torch, smi)
     for e in entries:
         if e["name"] in ("softmax", "exp", "uniform"):
             e["launches_remat_dots"] = remat_dots[e["name"]]
+            e["launches_sharded"] = sharded[e["name"]]
         e["launches_tuned_serving"] = tuned[e["name"]]
         if e["name"] in tuned_tilings:
             e["tiling_launches_tuned_serving"] = tuned_tilings[e["name"]]
@@ -2825,7 +3054,9 @@ def main(argv=None) -> int:
         e["launches_counted_in"] = f"the {phase} phase"
         if e["name"] in paths:
             e["launches_by_path"] = paths[e["name"]]
-    print(json.dumps({"kernels": entries}))
+    (out / "kernels.json").write_text(json.dumps({"kernels": entries},
+                                                 indent=1))
+    print(json.dumps({"kernels": _compact(entries)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,7 @@ import time
 from pathlib import Path
 
 import torch
+from torch.distributed.tensor import DTensor
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -148,9 +149,37 @@ def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def on_local(fn, x: torch.Tensor, what: str,
+             reduced_dim: int | None = None) -> torch.Tensor:
+    """``fn(x)`` for a plain tensor.  For a DTensor, ``fn`` of its local
+    shard, wrapped with the same placements: right for an elementwise
+    ``fn`` and for one that reduces dimension ``reduced_dim`` alone, as
+    long as that dimension is whole on every rank.  Raises when it is
+    sharded, or when ``x`` holds partial sums; nothing is gathered."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    for p in x.placements:
+        if p.is_partial():
+            raise ValueError(f"{what}: the DTensor holds partial sums "
+                             f"({x.placements}); reduce it first")
+        if (reduced_dim is not None and p.is_shard()
+                and p.dim % x.ndim == reduced_dim % x.ndim):
+            raise ValueError(f"{what}: dimension {reduced_dim} is sharded "
+                             f"({x.placements}), and the kernel reduces "
+                             "over it whole")
+    y = fn(x.to_local())
+    return DTensor.from_local(y, x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
 def check_cuda_tensor(t: torch.Tensor, dtypes: tuple[torch.dtype, ...],
                       what: str) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of one of ``dtypes``."""
+    """Raise unless ``t`` is a contiguous CUDA tensor of one of ``dtypes``,
+    and no DTensor: a kernel reads one rank's memory, so a sharded tensor
+    reaches it as its local shard (``on_local``)."""
+    if isinstance(t, DTensor):
+        raise TypeError(f"{what}: got a DTensor; launch on its local shard")
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got one on "
                          f"{t.device}")

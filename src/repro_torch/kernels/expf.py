@@ -173,17 +173,20 @@ exp_cuda.tiling_launches = {}
 class ExpFn(torch.autograd.Function):
     """The COPIFT exp with a gradient.  ``use_kernel`` picks the forward:
     ``exp_cuda`` at ``block_rows`` on a CUDA tensor, ``exp_plain``
-    otherwise (which has no tiling); both return ``x``'s dtype.  The
+    otherwise (which has no tiling); both return ``x``'s dtype, and a
+    DTensor is computed on its local shard (``_build.on_local``).  The
     backward is ``g * y`` from the saved output, in fp32."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, use_kernel: bool,
                 block_rows: int | None = None) -> torch.Tensor:
-        if use_kernel:
-            y = exp_cuda(x.to(torch.float32).contiguous(),
-                         block_rows).to(x.dtype)
-        else:
-            y = exp_plain(x).to(x.dtype)
+        def run(x):
+            if use_kernel:
+                return exp_cuda(x.to(torch.float32).contiguous(),
+                                block_rows).to(x.dtype)
+            return exp_plain(x).to(x.dtype)
+
+        y = _build.on_local(run, x, "exp")
         ctx.save_for_backward(y)
         return y
 

@@ -175,18 +175,22 @@ softmax_cuda.tiling_launches = {}
 class SoftmaxFn(torch.autograd.Function):
     """The COPIFT softmax over the last axis, with a gradient.
     ``use_kernel`` picks the forward: ``softmax_cuda`` at ``block_rows`` on
-    a CUDA tensor, ``softmax_plain`` otherwise.  The backward computes in
+    a CUDA tensor, ``softmax_plain`` otherwise; a DTensor's rows are
+    computed on its local shard (``_build.on_local``), which raises when
+    the last axis is sharded.  The backward computes in
     fp32 from the saved output and returns ``x``'s dtype."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, use_kernel: bool,
                 block_rows: int | None = None) -> torch.Tensor:
-        if use_kernel:
+        def run(x):
+            if not use_kernel:
+                return softmax_plain(x)
             cols = x.shape[-1]
-            y = softmax_cuda(x.reshape(-1, cols).contiguous(),
-                             block_rows).reshape(x.shape)
-        else:
-            y = softmax_plain(x)
+            return softmax_cuda(x.reshape(-1, cols).contiguous(),
+                                block_rows).reshape(x.shape)
+
+        y = _build.on_local(run, x, "softmax", reduced_dim=-1)
         ctx.save_for_backward(y)
         return y
 

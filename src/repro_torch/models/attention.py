@@ -5,8 +5,10 @@ matrix goes through the COPIFT softmax kernel and the exp of the chunked
 (``repro_torch.kernels.ops``) when ``cfg.use_copift_softmax`` is set.
 
 Layout as in the JAX package: q (B, T, H, Dh); kv (B, S, Hkv, Dh); GQA
-repeats kv groups at use.  One device has no mesh, so the JAX package's
-sharding constraints have no counterpart here.
+repeats kv groups at use.  On DTensors (the sharded step) the two products
+run on each rank's shards, batch and KV heads (``_Heads``), and the
+chunked path's scores take the JAX package's sharding constraint
+(``parallel.autoshard.scores``).
 """
 
 from __future__ import annotations
@@ -14,10 +16,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.parallel import autoshard
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 
@@ -91,6 +95,65 @@ def _chunk_keep(cfg: ModelConfig, q_pos, k_pos, valid_limit=None):
     return keep
 
 
+class _Heads:
+    """The layout of attention's two products on DTensors: a grouped query
+    (B, T, Hkv, g, Dh) and keys and values (B, S, Hkv, Dh).  The query's
+    batch shards are kept ("b"); the "model" axis shards the head
+    dimension Dh where the keys have it so (the rule table's decode cache:
+    the scores then hold partial sums, "d"), else the KV heads where they
+    divide by it ("h"); every other mesh dimension is replicated.
+    ``contract`` runs an einsum on each rank's shards in that layout: the
+    layout is known, and DTensor's search for a batched product's sharding
+    over a 3-D mesh takes minutes."""
+
+    PARTIAL = "partial"
+    QG = {"b": 0, "h": 2, "d": 4}                 # (B, T, Hkv, g, Dh)
+    KV = {"b": 0, "h": 2, "d": 3}                 # (B, S, Hkv, Dh)
+    SCORES = {"b": 0, "h": 1, "d": PARTIAL}       # (B, Hkv, g, T, S), made
+    PROBS = {"b": 0, "h": 1}                      # ... and read
+
+    def __init__(self, qg: DTensor, k: DTensor):
+        self.mesh = mesh = qg.device_mesh
+        names = mesh.mesh_dim_names or ()
+        self.axes = []
+        for i, p in enumerate(qg.placements):
+            if p.is_shard() and p.dim == 0:
+                self.axes.append("b")
+            elif i < len(names) and names[i] == "model":
+                kp = k.placements[i]
+                self.axes.append(
+                    "d" if kp.is_shard() and kp.dim == 3 else
+                    "h" if qg.shape[2] % mesh.size(i) == 0 else None)
+            else:
+                self.axes.append(None)
+
+    def placements(self, dims: dict) -> list:
+        out = []
+        for a in self.axes:
+            d = dims.get(a)
+            out.append(Replicate() if d is None else
+                       Partial() if d == self.PARTIAL else Shard(d))
+        return out
+
+    def place(self, x: DTensor, dims: dict) -> DTensor:
+        pl = self.placements(dims)
+        return x if list(x.placements) == pl else \
+            x.redistribute(self.mesh, pl)
+
+    def contract(self, eq: str, a, a_dims, b, b_dims, out_dims):
+        y = torch.einsum(eq, self.place(a, a_dims).to_local(),
+                         self.place(b, b_dims).to_local())
+        return DTensor.from_local(y, self.mesh, self.placements(out_dims),
+                                  run_check=False)
+
+
+def _einsum(heads: _Heads | None, eq: str, a, a_dims, b, b_dims, out_dims):
+    """``torch.einsum(eq, a, b)``; on DTensors in the ``heads`` layout."""
+    if heads is None:
+        return torch.einsum(eq, a, b)
+    return heads.contract(eq, a, a_dims, b, b_dims, out_dims)
+
+
 def _chunked_attention(cfg: ModelConfig, q, k, v, q_offset: int,
                        valid_limit=None):
     """FlashAttention-style two-level blocking: the (T, S) score matrix is
@@ -112,28 +175,36 @@ def _chunked_attention(cfg: ModelConfig, q, k, v, q_offset: int,
         raise ValueError(f"T={T} is not a multiple of the query block {Tq}")
     nq = T // Tq
     dev = q.device
+    heads = _Heads(q, k) if isinstance(q, DTensor) else None
 
     def q_block(qb, qb_pos, lo, hi):
         """qb: (B,Tq,Hkv,g,Dh); qb_pos: (Tq,) absolute positions; [lo, hi):
         the kv-chunk range this block attends."""
         qf = qb.to(torch.float32)
-        m = torch.full((B, Hkv, g, Tq), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((B, Hkv, g, Tq), dtype=torch.float32, device=dev)
-        acc = torch.zeros((B, Tq, Hkv, g, Dh), dtype=torch.float32,
-                          device=dev)
+        if heads is not None:
+            qf = heads.place(qf, _Heads.QG)
+        # The running (m, l, acc), made like the query block so that a
+        # sharded block gives them its placements.
+        m = torch.full_like(qf[..., 0].permute(0, 2, 3, 1), NEG_INF,
+                            memory_format=torch.contiguous_format)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qf)
         for c in range(lo, hi):
             kc = k[:, c * C:(c + 1) * C].to(torch.float32)
             vc = v[:, c * C:(c + 1) * C].to(torch.float32)
-            s = torch.einsum("bthgd,bshd->bhgts", qf, kc) * scale
+            s = autoshard.scores(_einsum(
+                heads, "bthgd,bshd->bhgts", qf, _Heads.QG, kc, _Heads.KV,
+                _Heads.SCORES) * scale)
             k_pos = torch.arange(C, device=dev) + c * C
-            keep = _chunk_keep(cfg, qb_pos, k_pos, valid_limit)   # (Tq, C)
+            keep = L.replicated_like(
+                _chunk_keep(cfg, qb_pos, k_pos, valid_limit), s)  # (Tq, C)
             s = torch.where(keep, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))          # (B,Hkv,g,Tq)
             p = torch.where(keep, _exp(cfg, s - m_new[..., None]), 0.0)
             corr = _exp(cfg, m - m_new)
             l = l * corr + p.sum(dim=-1)
-            pv = torch.einsum("bhgts,bshd->bthgd", p, vc)
+            pv = _einsum(heads, "bhgts,bshd->bthgd", p, _Heads.PROBS, vc,
+                         _Heads.KV, _Heads.QG)
             corr_t = corr.permute(0, 3, 1, 2)                 # (B,Tq,Hkv,g)
             acc = acc * corr_t[..., None] + pv
             m = m_new
@@ -171,9 +242,9 @@ def attention(p: Attention, cfg: ModelConfig, x, positions, kv_cache=None,
     B, T, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
 
-    q = L.linear(p.q, x, dt).reshape(B, T, H, Dh)
-    k = L.linear(p.k, x, dt).reshape(B, T, Hkv, Dh)
-    v = L.linear(p.v, x, dt).reshape(B, T, Hkv, Dh)
+    q = L.split_dim(L.linear(p.q, x, dt), -1, (H, Dh))
+    k = L.split_dim(L.linear(p.k, x, dt), -1, (Hkv, Dh))
+    v = L.split_dim(L.linear(p.v, x, dt), -1, (Hkv, Dh))
     if cfg.qk_norm:
         q = L.norm("rmsnorm", p.q_norm, q)
         k = L.norm("rmsnorm", p.k_norm, k)
@@ -191,28 +262,35 @@ def attention(p: Attention, cfg: ModelConfig, x, positions, kv_cache=None,
     # GQA: (B, S, Hkv, Dh) → group queries; einsum over grouped heads.
     S = k.shape[1]
     g = H // Hkv
-    qg = q.reshape(B, T, Hkv, g, Dh)
+    qg = L.split_dim(q, 2, (Hkv, g))
 
     if T > 1 and T * S > CHUNKED_THRESHOLD and S % KV_CHUNK == 0:
         valid = None if kv_cache is None else q_offset + T
         out = _chunked_attention(cfg, qg, k, v, q_offset, valid).to(dt)
+        if isinstance(out, DTensor):     # merge (Hkv, g, Dh) with Dh whole
+            out = _Heads(qg, k).place(out, {"b": 0, "h": 2})
         out = out.reshape(B, T, H * Dh)
         return L.linear(p.o, out, dt), kv_cache
 
     # Scores in fp32, as the JAX package's preferred_element_type=float32:
     # the products of bf16 values are exact in fp32, and a bf16 matmul would
     # round the scores to bf16 before the mask and the softmax.
-    scores = torch.einsum("bthgd,bshd->bhgts", qg.to(torch.float32),
-                          k.to(torch.float32))
+    heads = _Heads(qg, k) if isinstance(qg, DTensor) else None
+    scores = L.reduced(_einsum(heads, "bthgd,bshd->bhgts",
+                               qg.to(torch.float32), _Heads.QG,
+                               k.to(torch.float32), _Heads.KV, _Heads.SCORES))
     scores = scores * (Dh ** -0.5)
     bias = _mask_bias(cfg, T, S, q_offset, scores.dtype, x.device)
     if kv_cache is not None:
         # Mask out cache slots beyond the current position.
         valid = torch.arange(S, device=x.device)[None, :] <= (q_offset + T - 1)
         bias = bias + torch.where(valid, 0.0, NEG_INF).to(scores.dtype)
-    scores = scores + bias[None, None, None]
+    scores = scores + L.replicated_like(bias, scores)[None, None, None]
     w = _softmax(cfg, scores).to(dt)
-    out = torch.einsum("bhgts,bshd->bthgd", w, v.to(dt))
+    out = _einsum(heads, "bhgts,bshd->bthgd", w, _Heads.PROBS, v.to(dt),
+                  _Heads.KV, _Heads.QG)
+    if heads is not None:        # merge (Hkv, g, Dh) with Dh whole
+        out = heads.place(out, {"b": 0, "h": 2})
     out = out.reshape(B, T, H * Dh)
     return L.linear(p.o, out, dt), kv_cache
 

@@ -14,10 +14,13 @@ Conventions (the JAX package's ``repro.models.layers``, in PyTorch idiom):
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -36,6 +39,79 @@ def truncnorm_(p: torch.Tensor, scale: float,
     w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
     nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     p.copy_(w * scale)
+
+
+def replicated_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t``, a tensor the model makes that every rank would make whole
+    (positions, masks, rotary frequencies, constants), as a replicated
+    DTensor on ``ref``'s mesh when ``ref`` is a DTensor (the sharded step),
+    else ``t`` itself: DTensor ops take no plain tensor beside a DTensor."""
+    if not isinstance(ref, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def sharded_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t``, a tensor the model makes whole on every rank whose dimensions
+    are ``ref``'s leading ones (positions beside a (B, T, D) activation),
+    as a DTensor sharded where ``ref`` shards those dimensions and
+    replicated elsewhere; each rank keeps its shard, with no collective.
+    ``t`` itself when ``ref`` is no DTensor."""
+    if not isinstance(ref, DTensor):
+        return t
+    placements = [p if p.is_shard() and p.dim < t.ndim else Replicate()
+                  for p in ref.placements]
+    return distribute_tensor(t, ref.device_mesh, placements,
+                             src_data_rank=None)
+
+
+def split_dim(x: torch.Tensor, dim: int, sizes: tuple[int, ...]):
+    """``x`` with dimension ``dim`` split into ``sizes`` (a view).  A DTensor
+    sharded on ``dim`` over n ranks in all splits so only if ``sizes[0]``
+    divides by n; otherwise the dimension is gathered first, as XLA
+    reshards before such a reshape (the TP heads of a model with fewer
+    heads than ranks)."""
+    dim = dim % x.ndim
+    if isinstance(x, DTensor):
+        n = math.prod(x.device_mesh.size(i)
+                      for i, p in enumerate(x.placements)
+                      if p.is_shard() and p.dim == dim)
+        if sizes[0] % n:
+            x = whole(x, dim)
+    return x.unflatten(dim, sizes)
+
+
+def whole(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with dimension ``dim`` gathered where a DTensor shards it (a
+    gather or a reshape needs it whole); any other tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    dim = dim % x.ndim
+    pl = [Replicate() if p.is_shard() and p.dim == dim else p
+          for p in x.placements]
+    return x if pl == list(x.placements) else \
+        x.redistribute(x.device_mesh, pl)
+
+
+def replicated(x: torch.Tensor) -> torch.Tensor:
+    """``x`` made whole on every rank (all-gathered and all-reduced) when
+    it is a DTensor; any other tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def reduced(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its partial sums all-reduced when it is a DTensor that
+    holds them (a contraction over a sharded dimension gives them), where
+    the next op is not linear; any other tensor as it is."""
+    if not isinstance(x, DTensor) or not any(p.is_partial()
+                                             for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in x.placements])
 
 
 # ---------------------------------------------------------------------------
@@ -75,7 +151,12 @@ class Embedding(nn.Module):
 
 
 def embed(p: Embedding, ids: torch.Tensor, dtype) -> torch.Tensor:
-    return p.table.to(dtype)[ids]
+    # ``F.embedding`` rather than indexing: the same gather, and DTensor
+    # shards its backward (a sharded batch gives a partial-sum gradient of
+    # the replicated table), where an index's backward replicates the ids.
+    # A vocabulary-sharded table gives masked partial sums, which DTensor
+    # can reduce only once: they are reduced here.
+    return reduced(F.embedding(ids, p.table.to(dtype)))
 
 
 def unembed(p: Embedding, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -145,7 +226,8 @@ def _rotate_pairs(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (B, T, H, Dh); positions: (B, T) int."""
-    inv = rope_freqs(x.shape[-1], theta, x.device)            # (Dh/2,)
+    inv = replicated_like(rope_freqs(x.shape[-1], theta, x.device),
+                          positions)                          # (Dh/2,)
     ang = positions[..., None].to(torch.float32) * inv        # (B, T, Dh/2)
     return _rotate_pairs(x, ang)
 

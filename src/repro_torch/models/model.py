@@ -21,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.parallel import autoshard
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -98,22 +99,21 @@ def load_params(state_dict: Mapping[str, torch.Tensor | np.ndarray],
 
 
 def _positions(cfg: ModelConfig, batch: dict, B: int, T_len: int, device,
-               cache_index=None):
-    if cfg.rope == "mrope":
-        if "positions3" in batch:
-            return batch["positions3"]
-        base = torch.arange(T_len, dtype=torch.int32, device=device)
-        base = base[None].expand(B, T_len)
-        if cache_index is not None:
-            base = base + cache_index
-        return torch.stack([base, base, base])        # text: t = h = w
-    if "positions" in batch:
-        return batch["positions"]
+               cache_index=None, like=None):
+    """(B, T) positions, or (3, B, T) for M-RoPE; sharded as the batch
+    dimensions of ``like`` when it is a DTensor."""
     pos = torch.arange(T_len, dtype=torch.int32, device=device)[None]
     pos = pos.expand(B, T_len)
     if cache_index is not None:
         pos = pos + cache_index
-    return pos
+    if cfg.rope == "mrope":
+        if "positions3" in batch:
+            return batch["positions3"]
+        pos = L.sharded_like(pos, like)
+        return torch.stack([pos, pos, pos])           # text: t = h = w
+    if "positions" in batch:
+        return batch["positions"]
+    return L.sharded_like(pos, like)
 
 
 def _readout(params: LMModel, cfg: ModelConfig, x):
@@ -135,9 +135,11 @@ def forward(params: LMModel, cfg: ModelConfig, batch: dict, cache=None,
     else:
         x = L.embed(params.embed, batch["tokens"], dt)
         if cfg.embed_scale:
-            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+            x = x * L.replicated_like(
+                torch.tensor(cfg.d_model ** 0.5, dtype=dt), x)
+    x = autoshard.hidden(x)
     B, T_len = x.shape[:2]
-    positions = _positions(cfg, batch, B, T_len, x.device, cache_index)
+    positions = _positions(cfg, batch, B, T_len, x.device, cache_index, x)
 
     x, cache, aux = T.apply_stack(params.stack, cfg, x, positions, cache,
                                   cache_index)
@@ -158,7 +160,7 @@ CE_CHUNK = 256
 def _ce_terms(params: LMModel, cfg: ModelConfig, hidden, targets):
     """(Σ (logz - ll), Σ logz², count) over one chunk; fp32 math on the
     logits of the compute dtype."""
-    logits = _readout(params, cfg, hidden).to(torch.float32)
+    logits = autoshard.logits(_readout(params, cfg, hidden)).to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     if cfg.vocab_parallel_ce:
         # The JAX package's vocab-sharded form: the target's logit by a
@@ -166,8 +168,11 @@ def _ce_terms(params: LMModel, cfg: ModelConfig, hidden, targets):
         onehot = F.one_hot(targets.long(), cfg.vocab_size).to(logits.dtype)
         ll = (logits * onehot).sum(dim=-1)
     else:
+        # The target's logit by a gather, over the whole vocabulary.
+        logits = L.whole(logits, -1)
         ll = logits.gather(-1, targets.long()[..., None])[..., 0]
-    count = torch.tensor(float(targets.numel()), device=logits.device)
+    count = L.replicated_like(torch.tensor(float(targets.numel()),
+                                           device=logits.device), logits)
     return (logz - ll).sum(), logz.square().sum(), count
 
 

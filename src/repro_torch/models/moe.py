@@ -19,9 +19,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel import autoshard
 
 GROUP = 4096          # tokens per dispatch group (bounds the (E,C,D) buffer)
 
@@ -72,15 +74,39 @@ class MoE(nn.Module):
                        if e.n_shared else None)
 
 
+def _bmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm(x, w)`` of (E, M, K) and (E, K, N).  On DTensors it runs
+    on each rank's shards in ``w``'s layout: a mesh dimension that shards
+    ``w``'s experts or its contraction takes ``x``'s matching slice and
+    gives a result sharded on the experts or holding partial sums; one
+    that shards ``w``'s columns gives a result sharded on them.  The layout
+    is the rule table's, and DTensor's search for a batched product's
+    sharding over a 3-D mesh takes minutes."""
+    if not isinstance(w, DTensor):
+        return torch.bmm(x, w)
+    mesh = w.device_mesh
+    need, out = [], []
+    for p in w.placements:
+        d = p.dim if p.is_shard() else None
+        need.append(Shard(0) if d == 0 else Shard(2) if d == 1
+                    else Replicate())
+        out.append(Shard(0) if d == 0 else Partial() if d == 1
+                   else Shard(2) if d == 2 else Replicate())
+    if list(x.placements) != need:
+        x = x.redistribute(mesh, need)
+    y = torch.bmm(x.to_local(), w.to_local())
+    return DTensor.from_local(y, mesh, out, run_check=False)
+
+
 def _expert_ffn(bank: ExpertBank, x: torch.Tensor, cfg: ModelConfig):
     """x: (E, C, D) → (E, C, D) by per-expert batched matrix products."""
     dt = getattr(torch, cfg.dtype)
-    up = torch.bmm(x, bank.up.to(dt))
+    up = L.reduced(_bmm(x, bank.up.to(dt)))
     if bank.gate is not None:
-        up = up * L.act_fn(cfg.act, torch.bmm(x, bank.gate.to(dt)))
+        up = up * L.act_fn(cfg.act, L.reduced(_bmm(x, bank.gate.to(dt))))
     else:
         up = L.act_fn(cfg.act, up)
-    return torch.bmm(up, bank.down.to(dt))
+    return _bmm(up, bank.down.to(dt))
 
 
 def capacity(cfg: ModelConfig, n_tokens: int) -> int:
@@ -98,15 +124,34 @@ def top_k(probs: torch.Tensor, k: int):
 
 
 def _dispatch_group(p: MoE, cfg: ModelConfig, xg: torch.Tensor):
-    """Route one token group.  xg: (S, D) → (out (S, D), aux_loss scalar)."""
+    """Route one token group.  xg: (S, D) → (out (S, D), aux_loss scalar).
+
+    A sharded group (a DTensor) is gathered first: capacity and the
+    dispatch order are the whole group's.  Every rank then routes the
+    whole group on its local copy, with plain ops (the same on every rank,
+    and none of them needs a DTensor sharding rule), and computes its
+    shards of the expert banks (``_bmm``)."""
     e = cfg.moe
     dt = getattr(torch, cfg.dtype)
+    xg = L.replicated(xg)
     S, D = xg.shape
     E, K = e.n_experts, e.top_k
     C = capacity(cfg, S)
     dev = xg.device
 
     logits = L.linear(p.router, xg, torch.float32)           # (S, E)
+    if isinstance(xg, DTensor):
+        mesh = xg.device_mesh
+
+        def wrap(t):
+            return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                      run_check=False)
+
+        xg, logits = xg.to_local(), L.replicated(logits).to_local()
+    else:
+        def wrap(t):
+            return t
+
     probs = torch.softmax(logits, dim=-1)
     gate, idx = top_k(probs, K)                              # (S, K)
     gate = gate / gate.sum(dim=-1, keepdim=True)             # renormalize
@@ -132,18 +177,21 @@ def _dispatch_group(p: MoE, cfg: ModelConfig, xg: torch.Tensor):
     buf = torch.zeros((E, C, D), dtype=dt, device=dev).index_put(
         (sorted_e, slot), vals, accumulate=True)
 
-    h = _expert_ffn(p.experts, buf, cfg)                     # (E, C, D)
+    h = _expert_ffn(p.experts, wrap(buf), cfg)               # (E, C, D)
+    if isinstance(h, DTensor):
+        h = L.replicated(h).to_local()
 
     # --- combine: each (token, slot) reads back its expert output.
     slot_val = torch.where(keep[:, None], h[sorted_e, slot], 0)   # (S·K, D)
     inv = torch.argsort(order, stable=True)                  # undo the sort
     per_slot = slot_val[inv].reshape(S, K, D)
-    out = (per_slot * gate[..., None].to(dt)).sum(dim=1)
+    out = wrap((per_slot * gate[..., None].to(dt)).sum(dim=1))
 
     if p.shared is not None:
         xs = xg.to(dt)[None].expand(e.n_shared, S, D)        # (n_shared,S,D)
-        out = out + _expert_ffn(p.shared, xs, cfg).sum(dim=0)
-    return out, aux
+        out = out + L.replicated(_expert_ffn(p.shared, wrap(xs),
+                                             cfg)).sum(dim=0)
+    return out, wrap(aux)
 
 
 def moe_ffn(p: MoE, cfg: ModelConfig, x: torch.Tensor):
@@ -158,4 +206,4 @@ def moe_ffn(p: MoE, cfg: ModelConfig, x: torch.Tensor):
         out, aux = _dispatch_group(p, cfg, x.reshape(B * T, D))
         return out.reshape(B, T, D), aux
     outs, auxs = zip(*(_dispatch_group(p, cfg, x[b]) for b in range(B)))
-    return torch.stack(outs), torch.stack(auxs).mean()
+    return autoshard.hidden(torch.stack(outs)), torch.stack(auxs).mean()

@@ -36,6 +36,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.parallel import autoshard
 
 
 @dataclass(frozen=True)
@@ -144,9 +145,10 @@ def apply_sublayer(p: Block, cfg: ModelConfig, x, positions, cache=None,
         out, (xp, st) = S.rwkv6_mix(p.rwkv, cfg, h, state)
         if cache is not None:
             _store(cache, x_prev=xp, S=st)
-    x = x + out
+    x = x + autoshard.barrier(out)
 
     h = L.norm(cfg.norm, p.norm2, x)
+    x = autoshard.hidden(x)
     if hasattr(p, "cmix"):
         out, cmp_ = S.rwkv6_channel_mix(
             p.cmix, cfg, h, cache["cm_prev"] if cache is not None else None)
@@ -156,7 +158,7 @@ def apply_sublayer(p: Block, cfg: ModelConfig, x, positions, cache=None,
         out, aux = M.moe_ffn(p.moe, cfg, h)
     else:
         out = L.ffn(p.ffn, h, cfg.act, getattr(torch, cfg.dtype))
-    return x + out, cache, aux
+    return autoshard.hidden(x + autoshard.barrier(out)), cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +228,8 @@ def apply_stack(params: Stack, cfg: ModelConfig, x, positions, cache=None,
     the periods.  Periods are rematerialised as ``cfg.remat`` says when
     gradients are on and there is no cache."""
     prefix, period, n_periods = layer_plan(cfg)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_total = L.replicated_like(
+        torch.zeros((), dtype=torch.float32, device=x.device), x)
     for i in range(len(prefix)):
         c = cache["prefix"][i] if cache is not None else None
         x, _, aux = apply_sublayer(params.prefix[i], cfg, x, positions, c,

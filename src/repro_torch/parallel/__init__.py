@@ -1,4 +1,4 @@
-"""parallel substrate: what of the JAX package's ``repro.parallel`` runs
-without a device mesh — ``compress`` (int8 gradient compression with
-error feedback).  The sharding rules, the automatic sharder and the
-compressed collective need a mesh: ROADMAP.md §1 item 4."""
+"""parallel substrate, as the JAX package's ``repro.parallel``: the
+sharding rule table (``sharding``: parameter, batch and cache specs, and
+their DTensor placements), activation sharding (``autoshard``) and int8
+gradient compression (``compress``)."""

@@ -8,9 +8,9 @@ in fp32, rounding half to even as ``jnp.round`` does); ``ef_compress``
 carries the residual so the quantization error is re-injected next step
 — the standard EF-SGD construction that keeps convergence despite 4x
 payload reduction.  ``make_train_step(compress_pod_grads=True)`` applies
-the round trip to every gradient on one device.  ``compressed_psum``, the
-shard_map collective used when training spans pods, needs a device mesh
-and is not ported (ROADMAP.md §1 item 4).
+the round trip to every gradient on one device.  ``compressed_psum`` is
+the collective used when training spans pods, over one mesh dimension's
+process group.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 __all__ = ["quantize_dequantize", "ef_init", "ef_compress",
            "compressed_psum"]
@@ -74,10 +75,25 @@ def ef_compress(grads: Any, error: Any):
     return g_hat, new_e
 
 
-def compressed_psum(g: torch.Tensor, axis_name: str):
-    """The JAX package's shard_map collective (int8-quantize, all-reduce
-    the int payload, dequantize).  It runs across a device mesh, which the
-    port does not have yet."""
-    raise NotImplementedError(
-        "compressed_psum: the int8 cross-pod all-reduce needs a device "
-        "mesh (parallel/sharding.py), ROADMAP.md §1 item 4")
+def compressed_psum(g: torch.Tensor, group=None) -> torch.Tensor:
+    """int8-quantize, all-reduce the int payload, dequantize: the JAX
+    package's ``shard_map`` collective on ``group``, one mesh dimension's
+    process group (``mesh.get_group(axis)``; the default group when
+    ``None``), called by every rank with its own ``g``.
+
+    The JAX package's arithmetic and order: each rank quantizes with its
+    own scale, the int32 payloads are summed, the scales reduced by max,
+    and the sum dequantized with the largest scale and divided by the
+    rank count.  That biases the result (ranks with smaller scales count
+    too much) exactly as the JAX package's does."""
+    scale = torch.clamp(g.abs().amax(), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+    # Sum int8 payloads in int32 to avoid overflow across the axis.
+    summed = q.to(torch.int32)
+    dist.all_reduce(summed, dist.ReduceOp.SUM, group=group)
+    # Each shard contributed its own scale; use the max scale (conservative).
+    max_scale = scale.clone()
+    dist.all_reduce(max_scale, dist.ReduceOp.MAX, group=group)
+    n = torch.tensor(float(dist.get_world_size(group)), dtype=torch.float32,
+                     device=g.device)
+    return summed.to(torch.float32) * max_scale / n

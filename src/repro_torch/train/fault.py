@@ -5,8 +5,9 @@ device, straggler detection, as the JAX package's ``repro.train.fault``.
   retention, atomic writes (``checkpoint.py``), async saving and
   ``latest()`` discovery; resume after a kill is ``restore_or_init``.
 * :func:`elastic_restore` — restores the latest checkpoint onto a given
-  device.  Checkpoints store plain CPU tensors, so any device can read
-  them; a device mesh is not ported (ROADMAP.md §1 item 4).
+  device, or onto a device mesh of another shape: checkpoints store the
+  logical tensors, so re-sharding places them by the same rule table
+  (``parallel.sharding``), with no file-format coupling.
 * :class:`StragglerMonitor` — per-host step-time tracking with a robust
   (median + MAD) slow-host detector and a rebalancing plan, publishing to
   ``repro_torch.obs.metrics``.
@@ -25,6 +26,8 @@ from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.obs import metrics as _metrics
 from repro_torch.train import checkpoint as ckpt
@@ -41,9 +44,16 @@ class CheckpointManager:
         return os.path.join(self.dir, f"step_{step:08d}.pt")
 
     def save(self, step: int, tree, meta: dict | None = None) -> str:
-        """Save ``tree`` (a flat ``{name: tensor}``) as ``step``."""
+        """Save ``tree`` (a flat ``{name: tensor}``) as ``step``.  A tree of
+        DTensors is saved as its logical tensors: every rank calls ``save``
+        (each DTensor is all-gathered) and rank 0 writes the file."""
         meta = dict(meta or {}, step=step, time=time.time())
         path = self._path(step)
+        if any(isinstance(v, DTensor) for v in tree.values()):
+            tree = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                    for k, v in tree.items()}
+            if dist.get_rank() != 0:
+                return path
         if self.saver:
             self.saver.submit(path, tree, meta)
         else:
@@ -94,15 +104,16 @@ class CheckpointManager:
 
 def elastic_restore(manager: CheckpointManager,
                     init_fn: Callable[[torch.device], Any],
-                    device: torch.device | str, mesh=None):
+                    device: torch.device | str, mesh=None, cfg=None):
     """Resume the latest checkpoint onto ``device``: ``init_fn(device)``
-    builds the state there and the checkpoint is loaded into it.  Returns
-    (state, step).  A device mesh (the JAX package's re-shard onto new
-    NamedShardings) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "elastic_restore onto a device mesh: sharding comes with "
-            "parallel/, ROADMAP.md §1 item 4")
+    builds the state there and the checkpoint is loaded into it.  With
+    ``mesh`` (e.g. after losing a pod: 512 → 256 chips), the state is then
+    placed on it by the rule table of ``cfg``
+    (``ShardingRules(cfg, mesh)``), which recomputes the ZeRO/TP layout;
+    every rank of the mesh calls this.  Returns (state, step)."""
+    if mesh is not None and cfg is None:
+        raise ValueError("elastic_restore onto a mesh needs the model "
+                         "config whose rule table places the state")
     step = manager.latest()
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {manager.dir}")
@@ -110,6 +121,10 @@ def elastic_restore(manager: CheckpointManager,
     state = init_fn(device)
     arrays, meta = manager.restore(step, device)
     state.load_state_dict(arrays)
+    if mesh is not None:
+        from repro_torch.parallel.sharding import ShardingRules
+        from repro_torch.train.train_step import distribute_train_state
+        state = distribute_train_state(state, ShardingRules(cfg, mesh))
     return state, int(meta["step"])
 
 

@@ -20,6 +20,7 @@ import re
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import (LMModel, load_params, loss_fn,
@@ -40,10 +41,12 @@ class TrainState:
 
     @torch.no_grad()
     def sync_working_copy(self) -> None:
-        """Cast every master into its working parameter, where they differ."""
+        """Cast every master into its working parameter, where they differ:
+        a master of the working dtype is the working parameter's own
+        tensor (``init_train_state``)."""
         for name, w in self.model.named_parameters():
             master = self.params[name]
-            if w.data_ptr() != master.data_ptr():
+            if w.dtype != master.dtype:
                 w.copy_(master)
 
     def state_dict(self) -> dict[str, torch.Tensor]:
@@ -121,6 +124,15 @@ def compress_grads(grads: dict[str, torch.Tensor],
             for k, g in grads.items()}
 
 
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The gradient ``g`` of ``p`` in ``p``'s placements when both are
+    DTensors: the data-parallel reduction (partial sums all-reduced, or
+    reduce-scattered onto a sharded parameter) happens here, once."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     n_microbatches: int = 1, compress_pod_grads: bool = False):
     """Returns ``train_step(state, batch) -> (state, metrics)``, which
@@ -145,7 +157,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         # A parameter the loss does not read (hubert's token embedding,
         # RWKV's ``mu_x``) has a zero gradient, as under ``jax.grad``.
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
+        grads = [torch.zeros_like(p) if g is None else _placed_like(g, p)
                  for p, g in zip(params, grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             dict(zip(names, grads))
@@ -186,3 +198,29 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         return state, dict(metrics, loss=loss, **opt_metrics)
 
     return train_step
+
+
+@torch.no_grad()
+def distribute_train_state(state: TrainState, rules) -> TrainState:
+    """``state`` placed on ``rules.mesh`` by the rule table
+    (``parallel.sharding.ShardingRules``), as a new ``TrainState`` of
+    DTensors: each master, its working parameter and its moments take the
+    parameter's spec (ZeRO-1: the moments take their master's placement),
+    the step is replicated.  The working copy's parameters are replaced in
+    ``state.model``, so ``state`` itself is spent.  Every rank must hold
+    the whole state (the same seed): each keeps its own shards and no
+    collective runs.  A state on ``meta`` gives the dry-run's shards."""
+    from repro_torch.parallel.sharding import distribute, distribute_module
+    mesh = rules.mesh
+    specs = rules.params_pspecs(state.params)
+    shared = {k for k, w in state.model.named_parameters()
+              if w.dtype == state.params[k].dtype}
+    distribute_module(state.model, specs, mesh)
+    masters = {k: w.data if k in shared
+               else distribute(state.params[k], specs[k], mesh)
+               for k, w in state.model.named_parameters()}
+    opt = {part: {k: distribute(t, specs[k], mesh)
+                  for k, t in state.opt[part].items()}
+           for part in ("m", "v")}
+    opt["step"] = distribute(state.opt["step"], (), mesh)
+    return TrainState(model=state.model, params=masters, opt=opt)

@@ -160,9 +160,31 @@ class TestManager:
         got, step = elastic_restore(m, lambda d: _smoke_state(0), "cpu")
         assert step == 3
         _equal(got.state_dict(), state.state_dict())
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
+        # Onto a mesh: the rule table places the restored state there (a
+        # world of one process here; tests/test_torch_collectives.py
+        # restores a (2, 2) state onto (2,) in four).
+        with pytest.raises(ValueError, match="needs the model config"):
             elastic_restore(m, lambda d: _smoke_state(), "cpu",
                             mesh=object())
+        import torch.distributed as dist
+        from torch.distributed.tensor import DTensor, Replicate
+        from repro_torch.launch.mesh import make_mesh
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+            got, step = elastic_restore(m, lambda d: _smoke_state(0), "cpu",
+                                        mesh=mesh,
+                                        cfg=load_config("olmo-1b", "smoke"))
+            assert step == 3
+            sd = got.state_dict()
+            assert all(isinstance(v, DTensor) and v.device_mesh is mesh
+                       and v.placements == (Replicate(), Replicate())
+                       for v in sd.values())
+            _equal({k: v.full_tensor() for k, v in sd.items()},
+                   state.state_dict())
+        finally:
+            dist.destroy_process_group()
 
 
 def _both_monitors(script):

@@ -142,7 +142,9 @@ class TestLaunch:
 
 
 #: Imports every module of the port in a fresh interpreter and prints the
-#: modules it walked and those of ``sys.modules`` matching ``forbidden``.
+#: modules it walked and those of ``sys.modules`` matching ``forbidden``;
+#: fails too if an import made a process group or loaded PyTorch's private
+#: fake process group (``launch.dryrun`` imports it inside ``fake_world``).
 _IMPORT_ALL = (
     "import importlib, pkgutil, sys\n"
     "import repro_torch\n"
@@ -155,6 +157,9 @@ _IMPORT_ALL = (
     " 'repro_torch.')]\n"
     "for m in mods: importlib.import_module(m)\n"
     "bad = sorted(m for m in sys.modules if forbidden(m))\n"
+    "import torch.distributed as dist\n"
+    "if dist.is_initialized(): bad.append('a process group')\n"
+    "bad += [m for m in sys.modules if m.endswith('distributed.fake_pg')]\n"
     "print(len(mods), bad)\n"
     "print(*mods)\n"
     "sys.exit(1 if bad or len(mods) < 100 else 0)\n")
@@ -186,7 +191,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "configs.deepseek_moe_16b", "configs.rwkv6_1_6b",
               "resilience", "resilience.faults", "resilience.degrade",
               "resilience.failover", "serve.traffic", "serve.sim",
-              "serve.policies", "parallel", "parallel.compress"):
+              "serve.policies", "parallel", "parallel.compress",
+              "parallel.sharding", "parallel.autoshard", "launch.mesh",
+              "launch.specs", "launch.dryrun", "launch.comm_analysis"):
         assert f"repro_torch.{m}" in mods, m
 
 

@@ -541,9 +541,22 @@ class TestCompress:
             jc.quantize_dequantize(jnp.asarray(emb))[0]))
 
     def test_compressed_psum_raises_naming_item_4(self):
+        """Ported now (the name is kept from when it raised): over a group
+        of one process, ``compressed_psum`` is the int8 round trip, bit
+        for bit; tests/test_torch_collectives.py holds four processes
+        against JAX's ``shard_map``."""
+        import torch.distributed as dist
         from repro_torch.parallel import compress as tc
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
-            tc.compressed_psum(torch.ones(3), "pod")
+        g = torch.from_numpy(np.random.default_rng(3).normal(
+            size=(5, 7)).astype(np.float32))
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            got = tc.compressed_psum(g)
+        finally:
+            dist.destroy_process_group()
+        torch.testing.assert_close(got, tc.quantize_dequantize(g)[0],
+                                   rtol=0, atol=0)
 
 
 class TestNotPorted:
