@@ -5,6 +5,7 @@
   python3 chip_smoke.py --phase 6     # build, then phase 6 alone
   python3 chip_smoke.py --phase 11    # build, then phase 11 alone
   python3 chip_smoke.py --phase 12    # build, then phase 12 alone
+  python3 chip_smoke.py --phase 13    # build, then phase 13 alone
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line).  Every line printed also goes to
@@ -248,7 +249,34 @@ and prints no result line).  Every line printed also goes to
         with their wall time.
     The JSON line's ``launches_sharded`` (softmax, exp, uniform) are (a)'s
     sharded run's.
-13. The last line: ``{"ok": true, "device": {...}}``.
+13. The sharded path of the MoE and SSM families (``placed_phase``), on a
+    (1, 1) NCCL mesh as in phase 12, each model freed before the next:
+    (a) DeepSeekMoE-16B at full width and depth, batch 4, prompt 128, 8
+        greedy tokens: ``ServeEngine.generate`` unsharded, then the same
+        loop through ``_step_and_specs``' decode placement (parameters and
+        cache placed by the rule table, the engine's sampler on the
+        gathered logits): identical tokens, the same launches, softmax on
+        its warp path only and every softmax call on the DTensor route
+        (``kernels._build.on_local`` given a DTensor);
+    (b) DeepSeekMoE-16B at full width cut to 2 layers (dense, then MoE),
+        batch 4 x seq 2048, ``remat="full"``, 3 steps unsharded and 3
+        through the placements: losses and grad norms bit-equal, the MoE
+        layer through the batched per-row dispatch (``moe._dispatch_rows``,
+        twice a step: forward and recompute), softmax 3 and uniform 2
+        launches a step; ms a step and peak memory of both;
+    (c) RWKV-6 1.6B at full width and depth, batch 4, prompt 128, 8 tokens
+        sampled at temperature 1, as (a): identical tokens, uniform once a
+        slot and token;
+    (d) then, the NCCL group destroyed, ``DRYRUN_HOST_CELLS`` of the
+        dry-run in its fake world on the card's host, each record printed
+        with its wall time and torch version (deepseek-moe-16b x train_4k
+        x pod and x decode_32k x multipod with their per-op views: the
+        collectives and FLOPs by source line, and the placement changes
+        of (B, ...) tensors on "data" other than a shard moving between
+        dimensions, none expected in the train cell).
+    The JSON line's ``launches_sharded_moe`` (softmax, exp, uniform) are
+    (b)'s sharded run's.
+14. The last line: ``{"ok": true, "device": {...}}``.
 
 Phase 2 also times an empty kernel at the uniform kernel's grids
 (``tools/launch_floor.py``, built beside the kernels): the card's floor
@@ -2778,11 +2806,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _sharded_runs(torch, smi, mesh) -> dict:
-    """(a): OLMo-1B trained 3 steps unsharded, then 3 through the rule
-    table's placements on ``mesh``.  Returns the sharded run's launches."""
-    from repro_torch.configs import load_config
-    from repro_torch.configs.base import ShapeConfig
+def _train_both(torch, cfg, shape, mesh, steps: int):
+    """``cfg`` trained ``steps`` steps on ``shape``'s batches from the token
+    pipeline, unsharded (``make_train_step``) and then through
+    ``launch.dryrun._step_and_specs`` with every state tensor and batch
+    placed by the rule table on ``mesh``, from the same seed; then one more
+    sharded step under ``StepCounter``.  Returns (unsharded run, sharded
+    run, counter, rules, batch spec); a run is (rows of loss and grad
+    norm, seconds a step, launches, launches by path, peak bytes)."""
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.launch import dryrun
     from repro_torch.launch.comm_analysis import StepCounter
@@ -2790,9 +2821,6 @@ def _sharded_runs(torch, smi, mesh) -> dict:
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_step import make_train_step
 
-    steps = 3
-    cfg = load_config("olmo-1b", "full").replace(remat="full")
-    shape = ShapeConfig("sharded", 2048, 4, "train")
     pipe = TokenPipeline(cfg, shape, device="cuda")
     rules = ShardingRules(cfg, mesh, shape)
     bspec = rules.batch_spec(shape)
@@ -2816,11 +2844,11 @@ def _sharded_runs(torch, smi, mesh) -> dict:
         (rows, secs), launches, paths, _ = _main_path_run(torch, run)
         return rows, secs, launches, paths, torch.cuda.max_memory_allocated()
 
-    torch.cuda.empty_cache()
+    _free(torch)
     state = _full_state(torch, cfg)
     plain = train(make_train_step(cfg, AdamWConfig()), state, lambda b: b)
     del state
-    torch.cuda.empty_cache()
+    _free(torch)
     fn, _, place = dryrun._step_and_specs(cfg, shape, rules, mesh)
     state, _ = place((_full_state(torch, cfg), pipe.host_batch_at(0)))
 
@@ -2833,23 +2861,16 @@ def _sharded_runs(torch, smi, mesh) -> dict:
         fn(state, place_batch(pipe.host_batch_at(steps)))
     torch.cuda.synchronize()
     del state
-    torch.cuda.empty_cache()
+    _free(torch)
+    return plain, sharded, counter, rules, bspec
 
+
+def _train_both_row(plain, sharded, counter, rules, bspec, steps) -> dict:
+    """The printed fields of ``_train_both``'s runs."""
     (prow, psecs, _, _, ppeak), (srow, ssecs, launches, paths, speak) = \
         plain, sharded
-    for a, b in zip(srow, prow):
-        for k in ("loss", "grad_norm"):
-            if not math.isclose(a[k], b[k], rel_tol=1e-4):
-                _fail(f"(a): sharded {k} {a[k]!r} vs unsharded {b[k]!r}")
-    if launches["softmax"] != 32 * steps or launches["uniform"] != 2 * steps:
-        _fail(f"(a): launches {launches} in {steps} sharded steps, not "
-              "softmax 32 and uniform 2 a step")
-    _only_path("(a) sharded", paths["softmax"], "cluster")
-    print("sharded (a):", json.dumps(dict(
-        phase="a: OLMo-1B full width, batch 4 x seq 2048, bf16 compute, "
-              "fp32 masters, remat full, on a (1, 1) NCCL mesh through the "
-              "rule table's DTensor placements, against the unsharded step",
-        card=smi, steps=steps, use_tp=rules.use_tp, fsdp=rules.fsdp,
+    return dict(
+        steps=steps, use_tp=rules.use_tp, fsdp=rules.fsdp, ep=rules.ep,
         dp_axes=rules.dp_axes, batch_spec=bspec,
         ms_per_step=statistics.median(ssecs[1:]) * 1e3,
         ms_per_step_all=[t * 1e3 for t in ssecs],
@@ -2866,7 +2887,33 @@ def _sharded_runs(torch, smi, mesh) -> dict:
         launches_per_step={k: v / steps for k, v in launches.items()},
         path_launches_per_step={k: {p: v / steps for p, v in by.items()}
                                 for k, by in paths.items()},
-        collectives_one_step=counter.collective_bytes())))
+        collectives_one_step=counter.collective_bytes())
+
+
+def _sharded_runs(torch, smi, mesh) -> dict:
+    """(a): OLMo-1B trained 3 steps unsharded, then 3 through the rule
+    table's placements on ``mesh``.  Returns the sharded run's launches."""
+    from repro_torch.configs import load_config
+    from repro_torch.configs.base import ShapeConfig
+
+    steps = 3
+    cfg = load_config("olmo-1b", "full").replace(remat="full")
+    shape = ShapeConfig("sharded", 2048, 4, "train")
+    runs = _train_both(torch, cfg, shape, mesh, steps)
+    (prow, *_), (srow, _, launches, paths, _) = runs[:2]
+    for a, b in zip(srow, prow):
+        for k in ("loss", "grad_norm"):
+            if not math.isclose(a[k], b[k], rel_tol=1e-4):
+                _fail(f"(a): sharded {k} {a[k]!r} vs unsharded {b[k]!r}")
+    if launches["softmax"] != 32 * steps or launches["uniform"] != 2 * steps:
+        _fail(f"(a): launches {launches} in {steps} sharded steps, not "
+              "softmax 32 and uniform 2 a step")
+    _only_path("(a) sharded", paths["softmax"], "cluster")
+    print("sharded (a):", json.dumps(dict(
+        phase="a: OLMo-1B full width, batch 4 x seq 2048, bf16 compute, "
+              "fp32 masters, remat full, on a (1, 1) NCCL mesh through the "
+              "rule table's DTensor placements, against the unsharded step",
+        card=smi, **_train_both_row(*runs, steps))))
     return launches
 
 
@@ -2950,6 +2997,281 @@ def sharding_phase(torch, smi) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the sharded path of the MoE and SSM families
+# ---------------------------------------------------------------------------
+
+#: The dry-run cells that (d) runs on the card's host, (arch, shape, mesh,
+#: variant, with the per-op view): of the repaired families' cells, the
+#: full-size ones that finish in about a minute (rwkv6-1.6b and
+#: jamba-v0.1-52b x train_4k x pod take ~350 s in the CPU sandbox, and
+#: qwen2-vl-72b x prefill_32k x pod ~730 s: their smoke cells, or a smoke
+#: cell of the family, stand in), and the cells whose FLOPs or
+#: collectives differed between torch versions.
+DRYRUN_HOST_CELLS = (
+    ("deepseek-moe-16b", "train_4k", "pod", "full", True),
+    ("rwkv6-1.6b", "train_4k", "pod", "smoke", False),
+    ("qwen2-vl-72b", "decode_32k", "multipod", "smoke", False),
+    ("deepseek-moe-16b", "decode_32k", "multipod", "full", True))
+
+
+@contextlib.contextmanager
+def _dtensor_route():
+    """Counts, by kernel, the wrapper calls that took the DTensor route
+    (``kernels._build.on_local`` given a DTensor: the kernel runs on the
+    local shard)."""
+    from collections import Counter
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.kernels import _build
+    counts, orig = Counter(), _build.on_local
+
+    def on_local(fn, x, what, reduced_dim=None):
+        if isinstance(x, DTensor):
+            counts[what] += 1
+        return orig(fn, x, what, reduced_dim)
+
+    _build.on_local = on_local
+    try:
+        yield counts
+    finally:
+        _build.on_local = orig
+
+
+def _placed_generate(torch, cfg, params, prompts, n_steps: int,
+                     temperature: float, seed: int, mesh):
+    """``ServeEngine.generate``'s loop through ``_step_and_specs``' decode
+    placement on ``mesh``: ``params`` (placed in place) and the cache by the
+    rule table, each step's tokens by the batch spec, the engine's own
+    sampler on the gathered logits.  Returns (tokens, prefill s, decode
+    s)."""
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import init_stack_cache
+    from repro_torch.parallel.sharding import ShardingRules, distribute
+    from repro_torch.serve.engine import ServeEngine
+
+    B, plen = prompts.shape
+    max_len = plen + n_steps
+    shape = ShapeConfig("serve", max_len, B, "decode")
+    rules = ShardingRules(cfg, mesh, shape)
+    fn, _, place = dryrun._step_and_specs(cfg, shape, rules, mesh)
+    sampler = ServeEngine(cfg, None, max_len, B, temperature, seed,
+                          device="cuda")
+    seeds = sampler._slot_seeds(prompts)
+    toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+    params, cache, _, _ = place((params, init_stack_cache(
+        cfg, B, max_len, "cuda"), toks[:, :1], 0))
+    spec = rules.batch_spec(shape)
+    t0 = time.perf_counter()
+    logits, cache = fn(params, cache, distribute(toks, spec, mesh), 0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = [toks]
+    for i in range(n_steps):
+        tok = sampler._sample(logits.full_tensor(), i, seeds)[:, None]
+        out.append(tok)
+        if i + 1 < n_steps:
+            logits, cache = fn(params, cache, distribute(tok, spec, mesh),
+                               plen + i)
+    tokens = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
+    return tokens, t1 - t0, time.perf_counter() - t1
+
+
+def _serve_both(torch, smi, label, cfg, prompts, n_steps, temperature,
+                seed, mesh):
+    """``cfg`` at full width served unsharded through ``ServeEngine`` and
+    then through the rule table's placements on ``mesh`` (the same
+    parameters, placed in place): the tokens must be identical.  Returns
+    (unsharded launches and paths, sharded launches, paths and DTensor
+    route counts, the printed row)."""
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    B, plen = prompts.shape
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    engine = ServeEngine(cfg, params, plen + n_steps, B, temperature, seed,
+                         device="cuda")
+    res, plain, plain_paths, _ = _main_path_run(
+        torch, lambda: engine.generate(prompts, n_steps))
+    del engine
+    with _dtensor_route() as route:
+        (tokens, pre_s, dec_s), launches, paths, _ = _main_path_run(
+            torch, lambda: _placed_generate(torch, cfg, params, prompts,
+                                            n_steps, temperature, seed,
+                                            mesh))
+    del params
+    peak = torch.cuda.max_memory_allocated()
+    _free(torch)
+    if not (tokens == res.tokens).all():
+        _fail(f"{label}: tokens through the placements differ from the "
+              f"unsharded engine's:\n{tokens[:, plen:]}\n"
+              f"{res.tokens[:, plen:]}")
+    row = dict(
+        path=label, card=smi, batch=B, prompt=plen, new_tokens=n_steps,
+        temperature=temperature, tokens_identical=True,
+        new_token_ids=tokens[:, plen:].tolist(),
+        prefill_ms=pre_s * 1e3, decode_ms_per_token=dec_s * 1e3 / n_steps,
+        unsharded_prefill_ms=res.prefill_s * 1e3,
+        unsharded_decode_ms_per_token=res.decode_s * 1e3 / n_steps,
+        launches=launches, unsharded_launches=plain,
+        path_launches=paths, dtensor_route=dict(route),
+        peak_memory_gb=peak / 1e9)
+    return plain, launches, paths, route, row
+
+
+def placed_serve_moe(torch, smi, mesh) -> dict:
+    """(a): DeepSeekMoE-16B, full width and depth, batch 4, prompt 128, 8
+    greedy tokens.  Returns the sharded run's launches."""
+    import numpy as np
+
+    from repro_torch.configs import load_config
+    cfg = load_config("deepseek-moe-16b", "full")
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 128))
+    label = ("a: DeepSeekMoE-16B full width, 28 layers, batch 4, prompt "
+             "128, 8 greedy tokens, unsharded and through the rule table's "
+             "placements on a (1, 1) NCCL mesh")
+    plain, launches, paths, route, row = _serve_both(
+        torch, smi, label, cfg, prompts, 8, 0.0, 0, mesh)
+    _only_path("(a) sharded", paths["softmax"], "warp")
+    if route["softmax"] != launches["softmax"]:
+        _fail(f"(a): {launches['softmax']} softmax launches, "
+              f"{route['softmax']} of them through the DTensor route")
+    if launches != plain or launches["exp"] or launches["uniform"]:
+        _fail(f"(a): launches {launches} sharded, {plain} unsharded")
+    print("placed (a):", json.dumps(row))
+    return launches
+
+
+def placed_serve_rwkv(torch, smi, mesh) -> dict:
+    """(c): RWKV-6 1.6B, full width and depth, batch 4, prompt 128, 8
+    tokens sampled at temperature 1 (the uniform kernel).  Returns the
+    sharded run's launches."""
+    import numpy as np
+
+    from repro_torch.configs import load_config
+    cfg = load_config("rwkv6-1.6b", "full")
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (4, 128))
+    label = ("c: RWKV-6 1.6B full width, 24 layers, batch 4, prompt 128, 8 "
+             "tokens sampled at temperature 1.0, seed 3, unsharded and "
+             "through the rule table's placements")
+    plain, launches, _, _, row = _serve_both(
+        torch, smi, label, cfg, prompts, 8, 1.0, 3, mesh)
+    if launches != plain or launches["uniform"] != 4 * 8 or \
+            launches["softmax"] or launches["exp"]:
+        _fail(f"(c): launches {launches} sharded, {plain} unsharded; "
+              "uniform once a slot and token, no attention kernel")
+    print("placed (c):", json.dumps(row))
+    return launches
+
+
+def placed_train_moe(torch, smi, mesh) -> dict:
+    """(b): DeepSeekMoE-16B at full width cut to 2 layers (layer 0 dense,
+    layer 1 MoE), batch 4 x seq 2048, ``remat="full"``, 3 steps unsharded
+    and 3 through the placements: losses and grad norms bit-equal, the MoE
+    layer through the batched per-row dispatch.  Returns the sharded run's
+    launches."""
+    from repro_torch.configs import load_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import moe
+
+    steps = 3
+    cfg = load_config("deepseek-moe-16b", "full").replace(
+        n_layers=2, layer_types="aa", remat="full")
+    shape = ShapeConfig("sharded", 2048, 4, "train")
+    rows_calls, orig = [], moe._dispatch_rows
+
+    def counted(p, c, x):
+        rows_calls.append(tuple(x.shape))
+        return orig(p, c, x)
+
+    moe._dispatch_rows = counted
+    try:
+        with _dtensor_route() as route:
+            runs = _train_both(torch, cfg, shape, mesh, steps)
+    finally:
+        moe._dispatch_rows = orig
+    (prow, *_), (srow, _, launches, paths, _) = runs[:2]
+    _check_finite("(b) sharded", [dict(r, step=i) for i, r in
+                                  enumerate(srow)])
+    if srow != prow:
+        _fail(f"(b): sharded {srow} vs unsharded {prow}: not bit-equal")
+    # One MoE layer, forward and recompute, in each of the 3 + 3 + 1 steps.
+    if len(rows_calls) != 2 * (2 * steps + 1):
+        _fail(f"(b): the per-row dispatch ran {len(rows_calls)} times")
+    # softmax: the dense layer (the stack's prefix) once, the MoE layer
+    # (its period) and its recompute.
+    if launches["softmax"] != 3 * steps or launches["uniform"] != 2 * steps:
+        _fail(f"(b): launches {launches} in {steps} sharded steps, not "
+              "softmax 3 and uniform 2 a step")
+    if route["softmax"] != 3 * (steps + 1):
+        _fail(f"(b): {route['softmax']} softmax calls on the DTensor route")
+    print("placed (b):", json.dumps(dict(
+        phase="b: DeepSeekMoE-16B full width cut to 2 layers (dense, MoE), "
+              "batch 4 x seq 2048, bf16 compute, fp32 masters, remat full, "
+              "unsharded and through the rule table's placements on a "
+              "(1, 1) NCCL mesh; the MoE layer routes each row "
+              "(moe._dispatch_rows)", card=smi, parameters=_n_params(cfg),
+        dispatch_rows_inputs=sorted(set(rows_calls)),
+        dtensor_route=dict(route), **_train_both_row(*runs, steps))))
+    return launches
+
+
+def _batch_moves_over_data(redistributions, batch: int) -> list:
+    """The placement changes on the "data" axis of a (batch, ...)
+    activation or gradient, other than a shard moving between its
+    dimensions: each gathers, replicates or reduces the whole batch's
+    rows on every rank of the axis."""
+    return [r for r in redistributions
+            if r["shape"][:1] == [batch] and len(r["shape"]) >= 3
+            and any(c.startswith("data:") and not (
+                c.startswith("data:S(") and "->S(" in c)
+                for c in r["changes"])]
+
+
+def _dryrun_host(smi) -> None:
+    """(d): ``DRYRUN_HOST_CELLS`` in the dry-run's fake world, on the
+    card's host, each with its wall time and torch version."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+    for arch, shape, mesh, variant, by_site in DRYRUN_HOST_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, mesh, variant, by_site=by_site)
+        if by_site:
+            rec["batch_moves_over_data"] = _batch_moves_over_data(
+                rec.pop("redistributions"), SHAPES[shape].global_batch)
+        print("placed (d):", json.dumps(dict(
+            rec, phase="d: launch.dryrun.run_cell in a fake world of "
+                       f"{rec['devices']} ranks, on the card's host",
+            variant=variant, card=smi, wall_s=time.perf_counter() - t0)))
+
+
+def placed_phase(torch, smi) -> dict:
+    """Phase 13.  Returns (b)'s sharded run's launches."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        placed_serve_moe(torch, smi, mesh)
+        launches = placed_train_moe(torch, smi, mesh)
+        placed_serve_rwkv(torch, smi, mesh)
+    finally:
+        dist.destroy_process_group()
+    _dryrun_host(smi)
+    print(f"placed: phase wall time {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _compact(entries) -> list:
     """Each kernel's headline numbers and launches in every phase, in a
     line of a few kilobytes (the full entries go to ``kernels.json``)."""
@@ -2964,13 +3286,14 @@ def _compact(entries) -> list:
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port "
-                                 "on one NVIDIA GPU (phases 1 to 12).")
-    ap.add_argument("--phase", type=int, choices=(6, 11, 12),
+                                 "on one NVIDIA GPU (phases 1 to 13).")
+    ap.add_argument("--phase", type=int, choices=(6, 11, 12, 13),
                     help="build the kernels, then run only phase 6 "
                          "(training), 11 (the serving simulator, "
-                         "resilience, remat='dots' and compression) or 12 "
-                         "(the sharding rule table on DTensor); no result "
-                         "line is printed")
+                         "resilience, remat='dots' and compression), 12 "
+                         "(the sharding rule table on DTensor) or 13 (the "
+                         "sharded path of the MoE and SSM families); no "
+                         "result line is printed")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3005,7 +3328,7 @@ def _drive(args, torch, out: Path) -> int:
         t_build = _build.build_all()
         print(f"kernels built in {t_build:.1f} s into {_build.BUILD_DIR}")
         run = {6: train_phase, 11: sim_resilience_phase,
-               12: sharding_phase}[args.phase]
+               12: sharding_phase, 13: placed_phase}[args.phase]
         print(f"phase {args.phase} alone: launches",
               json.dumps(run(torch, smi)))
         return 0
@@ -3031,10 +3354,12 @@ def _drive(args, torch, out: Path) -> int:
     del serve_state
     remat_dots = sim_resilience_phase(torch, smi)
     sharded = sharding_phase(torch, smi)
+    placed = placed_phase(torch, smi)
     for e in entries:
         if e["name"] in ("softmax", "exp", "uniform"):
             e["launches_remat_dots"] = remat_dots[e["name"]]
             e["launches_sharded"] = sharded[e["name"]]
+            e["launches_sharded_moe"] = placed[e["name"]]
         e["launches_tuned_serving"] = tuned[e["name"]]
         if e["name"] in tuned_tilings:
             e["tiling_launches_tuned_serving"] = tuned_tilings[e["name"]]

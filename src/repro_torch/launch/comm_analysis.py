@@ -18,12 +18,12 @@ collectives with the JAX package's cost model.
 
 from __future__ import annotations
 
+import sys
 import weakref
 
 import torch
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
@@ -42,7 +42,7 @@ _COLLECTIVE_OPS = {
     "reduce_scatter_": "reduce-scatter",
     "_reduce_scatter_base_": "reduce-scatter",
     "all_to_all_single": "all-to-all", "alltoall_": "all-to-all",
-    "alltoall_base_": "all-to-all",
+    "alltoall_base_": "all-to-all", "shard_dim_alltoall": "all-to-all",
     "send": "collective-permute", "recv_": "collective-permute",
 }
 #: Functional-collective bookkeeping that moves no data.
@@ -53,8 +53,19 @@ _TRANSCENDENTAL = {"exp", "exp2", "expm1", "log", "log1p", "log2", "tanh",
                    "logsumexp", "softplus", "silu", "gelu", "_softmax"}
 
 
-def _tensors(tree):
-    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+def _tensors(tree, out=None) -> list:
+    """The tensors in ``tree``'s tuples, lists and dicts (an op's arguments
+    and results; ``tree_flatten`` costs more than the op on ``meta``)."""
+    out = [] if out is None else out
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, (tuple, list)):
+        for t in tree:
+            _tensors(t, out)
+    elif isinstance(tree, dict):
+        for t in tree.values():
+            _tensors(t, out)
+    return out
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -68,12 +79,28 @@ class StepCounter(TorchDispatchMode):
     ``transcendentals`` (elements of the ops in ``_TRANSCENDENTAL``),
     ``bytes_accessed`` (each op's inputs and outputs once: eager PyTorch
     fuses nothing) and ``peak_bytes``, the most bytes of storage that ops
-    run under the counter held alive at once."""
+    run under the counter held alive at once.
 
-    def __init__(self):
+    With ``by_site`` it also keeps the per-op view: the collectives and the
+    FLOPs by source line (``sites``, ``flop_sites``), and every placement
+    change DTensor makes (``redistributions``)."""
+
+    def __init__(self, by_site: bool = False):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
         self._flop_registry = flop_registry
+        #: With ``by_site``: {(the port's source line that dispatched it,
+        #: the last DTensor op before it, HLO name): [count, bytes]} of
+        #: every collective, the per-op view of ``collectives``.
+        self.by_site = {} if by_site else None
+        #: With ``by_site``: {(source line, aten op): FLOPs}.
+        self.flop_by_site = {} if by_site else None
+        #: With ``by_site``: {(source line, the autograd node running it or
+        #: None in the forward, the global shape, the changed mesh
+        #: dimensions as "axis:from->to"): count} of the redistributions.
+        self.redistributed = {} if by_site else None
+        self._unwatch = None
+        self._dtensor_op = None
         self.collectives: list[tuple[str, int]] = []
         self.flops = 0
         self.transcendentals = 0
@@ -95,8 +122,31 @@ class StepCounter(TorchDispatchMode):
     def _release(self, n: int) -> None:
         self.live_bytes -= n
 
+    def __enter__(self):
+        if self.by_site is not None:
+            self._unwatch = _watch_redistributions(self._redistribution)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        if self._unwatch is not None:
+            self._unwatch()
+            self._unwatch = None
+        return super().__exit__(*exc)
+
+    def _redistribution(self, current, target) -> None:
+        names = current.mesh.mesh_dim_names or range(current.mesh.ndim)
+        changes = tuple(f"{n}:{a}->{b}" for n, a, b in zip(
+            names, current.placements, target.placements) if a != b)
+        if not changes:
+            return
+        node = torch._C._current_autograd_node()
+        key = (_site(), node.name() if node is not None else None,
+               tuple(current.shape), changes)
+        self.redistributed[key] = self.redistributed.get(key, 0) + 1
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
+            self._dtensor_op = str(func)
             return NotImplemented        # DTensor runs, then its local ops
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
@@ -104,12 +154,20 @@ class StepCounter(TorchDispatchMode):
         name = packet.__name__
         ins, outs = _tensors((args, kwargs)), _tensors(out)
         if name in _COLLECTIVE_OPS:
-            self.collectives.append((_COLLECTIVE_OPS[name],
-                                     sum(map(_nbytes, outs))))
+            op, nbytes = _COLLECTIVE_OPS[name], sum(map(_nbytes, outs))
+            self.collectives.append((op, nbytes))
+            if self.by_site is not None:
+                row = self.by_site.setdefault(
+                    (_site(), self._dtensor_op, op), [0, 0])
+                row[0] += 1
+                row[1] += nbytes * (2 if op == "all-reduce" else 1)
         elif name not in _NOT_COLLECTIVES:
             if packet in self._flop_registry:
-                self.flops += self._flop_registry[packet](
-                    *args, **kwargs, out_val=out)
+                n = self._flop_registry[packet](*args, **kwargs, out_val=out)
+                self.flops += n
+                if self.flop_by_site is not None and n:
+                    key = (_site(), name)
+                    self.flop_by_site[key] = self.flop_by_site.get(key, 0) + n
             if name in _TRANSCENDENTAL:
                 self.transcendentals += sum(t.numel() for t in outs)
             self.bytes_accessed += sum(map(_nbytes, ins + outs))
@@ -119,6 +177,128 @@ class StepCounter(TorchDispatchMode):
 
     def collective_bytes(self) -> dict:
         return collective_bytes(self.collectives)
+
+    def sites(self, top: int = 10) -> list[dict]:
+        """The ``top`` rows of ``by_site`` by bytes (the cost model's)."""
+        rows = sorted(self.by_site.items(), key=lambda kv: -kv[1][1])
+        return [dict(site=site, dtensor_op=op, collective=coll, count=n,
+                     bytes=b) for (site, op, coll), (n, b) in rows[:top]]
+
+    def flop_sites(self, top: int = 10) -> list[dict]:
+        """The ``top`` rows of ``flop_by_site`` by FLOPs."""
+        rows = sorted(self.flop_by_site.items(), key=lambda kv: -kv[1])
+        return [dict(site=site, op=op, flops=float(n))
+                for (site, op), n in rows[:top]]
+
+    def redistributions(self) -> list[dict]:
+        """Every row of ``redistributed``, by source line."""
+        return [dict(site=site, node=node, shape=list(shape),
+                     changes=list(changes), count=n)
+                for (site, node, shape, changes), n in sorted(
+                    self.redistributed.items(), key=lambda kv: str(kv[0]))]
+
+
+def _watch_redistributions(record):
+    """Calls ``record(current_spec, target_spec)`` on each redistribution
+    of a DTensor's local shard, until the returned function is called.
+    DTensor's op dispatch and ``redistribute`` both call the private
+    ``_redistribute.redistribute_local_tensor``; the dispatch module holds
+    its own reference."""
+    import torch.distributed.tensor._dispatch as dispatch
+    import torch.distributed.tensor._redistribute as redistribute
+    orig = redistribute.redistribute_local_tensor
+
+    def watched(local, current, target, *args, **kwargs):
+        record(current, target)
+        return orig(local, current, target, *args, **kwargs)
+
+    mods = [m for m in (redistribute, dispatch)
+            if getattr(m, "redistribute_local_tensor", None) is orig]
+    for m in mods:
+        m.redistribute_local_tensor = watched
+
+    def unwatch():
+        for m in mods:
+            m.redistribute_local_tensor = orig
+    return unwatch
+
+
+def _site() -> str:
+    """``file:line function`` of the innermost frame of the port outside
+    this module (the model code whose op or redistribution is running)."""
+    f = sys._getframe(2)
+    while f is not None:
+        path = f.f_code.co_filename
+        if "repro_torch" in path and not path.endswith("comm_analysis.py"):
+            return (f"{path[path.rindex('repro_torch'):]}:{f.f_lineno} "
+                    f"{f.f_code.co_name}")
+        f = f.f_back
+    return "?"
+
+
+class MetaKernelCache(TorchDispatchMode):
+    """Runs each op on plain ``meta`` tensors once per signature: an op that
+    returns fresh tensors (no view, no in-place write) returns new empty
+    ``meta`` tensors of the outputs' sizes, strides and dtypes, as the
+    first call of its signature (the op, its arguments' sizes, strides
+    and dtypes, and every other argument) gave them.  A ``meta`` tensor
+    has no values, so the outputs are the op's, and every count
+    ``StepCounter`` takes of them is the same; PyTorch's ``meta`` kernels
+    of elementwise ops are Python and cost ~0.2 ms a call, which a
+    recurrence's T steps repeat.  DTensor ops pass (as in
+    ``StepCounter``)."""
+
+    def __init__(self):
+        super().__init__()
+        self._outs: dict = {}
+        self._fresh: dict = {}          # op: returns fresh tensors
+
+    @staticmethod
+    def _key(x):
+        if isinstance(x, torch.Tensor):
+            if type(x) is not torch.Tensor or not x.is_meta:
+                raise TypeError
+            return ("T", tuple(x.shape), x.stride(), x.dtype)
+        if isinstance(x, (tuple, list)):
+            return (type(x).__name__,
+                    tuple(MetaKernelCache._key(a) for a in x))
+        if isinstance(x, dict):
+            return tuple((k, MetaKernelCache._key(v)) for k, v in x.items())
+        hash(x)
+        return x
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        fresh = self._fresh.get(func)
+        if fresh is None:
+            schema = func._schema
+            fresh = self._fresh[func] = not (
+                any(r.alias_info is not None for r in schema.returns)
+                or any(a.alias_info is not None and a.alias_info.is_write
+                       for a in schema.arguments))
+        if not fresh or not any(isinstance(a, torch.Tensor) for a in args):
+            return func(*args, **kwargs)
+        try:
+            key = (func, self._key(args), self._key(kwargs))
+        except TypeError:               # not meta, or unhashable
+            return func(*args, **kwargs)
+        spec = self._outs.get(key)
+        if spec is None:
+            out = func(*args, **kwargs)
+            if isinstance(out, torch.Tensor):
+                self._outs[key] = (out.shape, out.stride(), out.dtype)
+            elif isinstance(out, tuple) and all(
+                    isinstance(t, torch.Tensor) for t in out):
+                self._outs[key] = [(t.shape, t.stride(), t.dtype)
+                                   for t in out]
+            return out
+        if isinstance(spec, tuple):
+            return torch.empty_strided(spec[0], spec[1], dtype=spec[2],
+                                       device="meta")
+        return tuple(torch.empty_strided(sh, st, dtype=dt, device="meta")
+                     for sh, st, dt in spec)
 
 
 def collective_bytes(collectives) -> dict:

@@ -37,6 +37,9 @@ Records go to ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh pod|multipod|both]
+
+Cells missing from ``--out`` run at once, each in a process of its own, as
+many as the host has cores.
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ import json
 import os
 import time
 import traceback
+from concurrent.futures import ProcessPoolExecutor
+from multiprocessing import get_context
 from pathlib import Path
 
 import torch
@@ -55,7 +60,7 @@ import torch
 from repro_torch.configs import SHAPES, applicable_shapes, load_config
 from repro_torch.configs.registry import ARCHS
 from repro_torch.launch import specs as SP
-from repro_torch.launch.comm_analysis import StepCounter
+from repro_torch.launch.comm_analysis import MetaKernelCache, StepCounter
 from repro_torch.launch.mesh import make_production_mesh, mesh_context
 from repro_torch.models.model import forward
 from repro_torch.parallel.sharding import (ShardingRules, distribute,
@@ -72,16 +77,44 @@ OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 def fake_world(world_size: int):
     """A default process group of ``world_size`` ranks on the ``fake``
     backend (this process is rank 0; collectives move nothing), destroyed
-    on exit."""
+    on exit.  Inside it DTensor's shard-to-shard redistributions are
+    all-to-alls (``_alltoall``)."""
     import torch.distributed as dist
     # Private API: the fake store lives in PyTorch's testing package.
     from torch.testing._internal.distributed.fake_pg import FakeStore
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=world_size)
     try:
-        yield
+        with _alltoall():
+            yield
     finally:
         dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _alltoall():
+    """DTensor moves a shard from one dimension to another by an
+    all-to-all, except on a CPU mesh, where it all-gathers the whole tensor
+    and keeps its chunk (gloo has no all-to-all).  The production mesh is
+    no CPU mesh, and the fake backend has the all-to-all: here DTensor's
+    ``shard_dim_alltoall`` (private API, also bound in
+    ``placement_types``) calls it whatever the mesh's device."""
+    from torch.distributed.tensor import _collective_utils, placement_types
+
+    def alltoall(x, gather_dim, shard_dim, mesh, mesh_dim):
+        return torch.ops._dtensor.shard_dim_alltoall(
+            x, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
+
+    mods = [m for m in (_collective_utils, placement_types)
+            if hasattr(m, "shard_dim_alltoall")]
+    saved = [m.shard_dim_alltoall for m in mods]
+    for m in mods:
+        m.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, saved):
+            m.shard_dim_alltoall = f
 
 
 def _distribute_tree(tree, specs, mesh):
@@ -188,7 +221,12 @@ def _storages(tree) -> dict:
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str,
-             variant: str = "full") -> dict:
+             variant: str = "full", by_site: bool = False) -> dict:
+    """The cell's record.  ``by_site`` adds the per-op view of
+    ``StepCounter``: ``collective_sites``, the ten (source line, DTensor
+    op, collective) rows of the most collective bytes; ``flop_sites``, the
+    ten (source line, op) rows of the most FLOPs; and
+    ``redistributions``, every placement change DTensor made."""
     cfg = load_config(arch, variant)
     shape = SHAPES[shape_name]
     multi_pod = mesh_kind == "multipod"
@@ -203,13 +241,15 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
         t0 = time.perf_counter()
         placed = place(args)
         arg_st = _storages(placed)
-        fn(*placed)                  # fills the sharding-propagation cache
-        counter = StepCounter()
-        with counter:
-            out = fn(*placed)
+        counter = StepCounter(by_site=by_site)
+        with MetaKernelCache():
+            fn(*placed)              # fills the sharding-propagation cache
+            with counter:
+                out = fn(*placed)
         out_st = _storages(out)
         record["lower_s"] = round(time.perf_counter() - t0, 1)
         record["compile_s"] = None
+        record["torch_version"] = torch.__version__
     alias = sum(n for k, n in out_st.items() if k in arg_st)
     arg_b, out_b = sum(arg_st.values()), sum(out_st.values())
     record["memory"] = dict(
@@ -220,6 +260,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
                       "transcendentals": float(counter.transcendentals),
                       "bytes_accessed": float(counter.bytes_accessed)}
     record["collectives"] = counter.collective_bytes()
+    if by_site:
+        record["collective_sites"] = counter.sites()
+        record["flop_sites"] = counter.flop_sites()
+        record["redistributions"] = counter.redistributions()
     return record
 
 
@@ -230,6 +274,14 @@ def cells(archs=None, shapes=None):
             if shapes and sh not in shapes:
                 continue
             yield arch, sh
+
+
+def _run_and_save(arch: str, sh: str, mk: str, path: str) -> dict:
+    """``run_cell`` of one cell, its record written to ``path``."""
+    rec = run_cell(arch, sh, mk)
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=1)
+    return rec
 
 
 def main(argv=None):
@@ -244,30 +296,39 @@ def main(argv=None):
     os.makedirs(args.out, exist_ok=True)
 
     meshes = ["pod", "multipod"] if args.mesh == "both" else [args.mesh]
-    todo = list(cells(args.arch, args.shape))
-    failures = []
-    for arch, sh in todo:
+    todo = []
+    for arch, sh in cells(args.arch, args.shape):
         for mk in meshes:
             tag = f"{arch}__{sh}__{mk}"
             path = os.path.join(args.out, tag + ".json")
             if os.path.exists(path):
                 print(f"[skip] {tag} (exists)")
-                continue
-            print(f"[dryrun] {tag} ...", flush=True)
+            else:
+                todo.append((tag, (arch, sh, mk, path)))
+    n_cells = len(list(cells(args.arch, args.shape))) * len(meshes)
+    failures = []
+    # Each cell runs in a process of its own: its host time starts from
+    # empty DTensor caches, as a cell run alone does.
+    jobs = max(1, min(len(todo), os.cpu_count() or 1))
+    print(f"[dryrun] {len(todo)} cells on {jobs} processes", flush=True)
+    with ProcessPoolExecutor(jobs, mp_context=get_context("spawn"),
+                             max_tasks_per_child=1) as pool:
+        futures = {tag: pool.submit(_run_and_save, *cell)
+                   for tag, cell in todo}
+        for tag, fut in futures.items():
             try:
-                rec = run_cell(arch, sh, mk)
-                with open(path, "w") as f:
-                    json.dump(rec, f, indent=1)
-                mem_gb = rec["memory"]["total_bytes"] / 2**30
-                print(f"[ok] {tag}: mem/device={mem_gb:.2f}GiB "
-                      f"flops/device={rec['cost']['flops']:.3e} "
-                      f"coll={rec['collectives']['total_bytes']:.3e}B "
-                      f"(run {rec['lower_s']}s)", flush=True)
-            except Exception as e:       # one cell's failure is reported
+                rec = fut.result()
+            except Exception:        # one cell's failure is reported
                 failures.append(tag)
-                print(f"[FAIL] {tag}: {e}")
+                print(f"[FAIL] {tag}:")
                 traceback.print_exc()
-    print(f"done: {len(todo) * len(meshes) - len(failures)} ok, "
+                continue
+            mem_gb = rec["memory"]["total_bytes"] / 2**30
+            print(f"[ok] {tag}: mem/device={mem_gb:.2f}GiB "
+                  f"flops/device={rec['cost']['flops']:.3e} "
+                  f"coll={rec['collectives']['total_bytes']:.3e}B "
+                  f"(run {rec['lower_s']}s)", flush=True)
+    print(f"done: {n_cells - len(failures)} ok, "
           f"{len(failures)} failed {failures}")
     raise SystemExit(1 if failures else 0)
 

@@ -13,6 +13,8 @@ chunked path's scores take the JAX package's sharding constraint
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 from torch import nn
@@ -97,8 +99,8 @@ def _chunk_keep(cfg: ModelConfig, q_pos, k_pos, valid_limit=None):
 
 class _Heads:
     """The layout of attention's two products on DTensors: a grouped query
-    (B, T, Hkv, g, Dh) and keys and values (B, S, Hkv, Dh).  The query's
-    batch shards are kept ("b"); the "model" axis shards the head
+    (B, T, Hkv, g, Dh) and keys and values (B, S, Hkv, Dh).  The batch
+    shards of either are kept ("b"); the "model" axis shards the head
     dimension Dh where the keys have it so (the rule table's decode cache:
     the scores then hold partial sums, "d"), else the KV heads where they
     divide by it ("h"); every other mesh dimension is replicated.
@@ -117,7 +119,11 @@ class _Heads:
         names = mesh.mesh_dim_names or ()
         self.axes = []
         for i, p in enumerate(qg.placements):
-            if p.is_shard() and p.dim == 0:
+            # The batch shards of the query or of the keys (a decode cache
+            # placed by the rule table, where torch 2.11 gives a query
+            # whose batch is replicated: the cache would be gathered).
+            if p.is_shard() and p.dim == 0 or (k.placements[i].is_shard()
+                                               and k.placements[i].dim == 0):
                 self.axes.append("b")
             elif i < len(names) and names[i] == "model":
                 kp = k.placements[i]
@@ -152,6 +158,22 @@ def _einsum(heads: _Heads | None, eq: str, a, a_dims, b, b_dims, out_dims):
     if heads is None:
         return torch.einsum(eq, a, b)
     return heads.contract(eq, a, a_dims, b, b_dims, out_dims)
+
+
+def _merge_heads(heads: _Heads | None, out):
+    """(B, T, Hkv, g, Dh) → (B, T, H·Dh).  On DTensors the batch and KV-head
+    shards are kept, Dh made whole, and the reshape runs on the local
+    shard: DTensor cannot split a sharded H·Dh into (Hkv, g, Dh) when Hkv
+    does not divide by the shards, which the reshape's backward asks."""
+    B, T = out.shape[:2]
+    if heads is None:
+        return out.reshape(B, T, -1)
+    out = heads.place(out, {"b": 0, "h": 2})
+    local = out.to_local()
+    n = math.prod(out.shape[2:])
+    return DTensor.from_local(local.reshape(*local.shape[:2], -1),
+                              heads.mesh, out.placements, run_check=False,
+                              shape=(B, T, n), stride=(T * n, n, 1))
 
 
 def _chunked_attention(cfg: ModelConfig, q, k, v, q_offset: int,
@@ -267,10 +289,8 @@ def attention(p: Attention, cfg: ModelConfig, x, positions, kv_cache=None,
     if T > 1 and T * S > CHUNKED_THRESHOLD and S % KV_CHUNK == 0:
         valid = None if kv_cache is None else q_offset + T
         out = _chunked_attention(cfg, qg, k, v, q_offset, valid).to(dt)
-        if isinstance(out, DTensor):     # merge (Hkv, g, Dh) with Dh whole
-            out = _Heads(qg, k).place(out, {"b": 0, "h": 2})
-        out = out.reshape(B, T, H * Dh)
-        return L.linear(p.o, out, dt), kv_cache
+        heads = _Heads(qg, k) if isinstance(out, DTensor) else None
+        return L.linear(p.o, _merge_heads(heads, out), dt), kv_cache
 
     # Scores in fp32, as the JAX package's preferred_element_type=float32:
     # the products of bf16 values are exact in fp32, and a bf16 matmul would
@@ -289,10 +309,7 @@ def attention(p: Attention, cfg: ModelConfig, x, positions, kv_cache=None,
     w = _softmax(cfg, scores).to(dt)
     out = _einsum(heads, "bhgts,bshd->bthgd", w, _Heads.PROBS, v.to(dt),
                   _Heads.KV, _Heads.QG)
-    if heads is not None:        # merge (Hkv, g, Dh) with Dh whole
-        out = heads.place(out, {"b": 0, "h": 2})
-    out = out.reshape(B, T, H * Dh)
-    return L.linear(p.o, out, dt), kv_cache
+    return L.linear(p.o, _merge_heads(heads, out), dt), kv_cache
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,

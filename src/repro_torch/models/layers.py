@@ -20,7 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -53,16 +54,21 @@ def replicated_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
                               run_check=False)
 
 
-def sharded_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+def sharded_like(t: torch.Tensor, ref: torch.Tensor,
+                 dims: tuple[int | None, ...] | None = None) -> torch.Tensor:
     """``t``, a tensor the model makes whole on every rank whose dimensions
     are ``ref``'s leading ones (positions beside a (B, T, D) activation),
-    as a DTensor sharded where ``ref`` shards those dimensions and
-    replicated elsewhere; each rank keeps its shard, with no collective.
-    ``t`` itself when ``ref`` is no DTensor."""
+    or ``ref``'s dimensions ``dims`` (one entry per dimension of ``t``,
+    ``None`` for one ``ref`` does not have: a zero state (B, H, hs, hs)
+    beside a (B, T, H, hs) input is ``dims=(0, 2, None, None)``), as a
+    DTensor sharded where ``ref`` shards those dimensions and replicated
+    elsewhere; each rank keeps its shard, with no collective.  ``t``
+    itself when ``ref`` is no DTensor."""
     if not isinstance(ref, DTensor):
         return t
-    placements = [p if p.is_shard() and p.dim < t.ndim else Replicate()
-                  for p in ref.placements]
+    dims = tuple(range(t.ndim)) if dims is None else tuple(dims)
+    placements = [Shard(dims.index(p.dim)) if p.is_shard() and p.dim in dims
+                  else Replicate() for p in ref.placements]
     return distribute_tensor(t, ref.device_mesh, placements,
                              src_data_rank=None)
 
@@ -135,7 +141,9 @@ class Linear(nn.Module):
 
 
 def linear(p: Linear, x: torch.Tensor, dtype) -> torch.Tensor:
-    y = x.to(dtype) @ p.w.to(dtype)
+    # A product of partial sums would be the whole product on every rank
+    # of their axis: they are reduced first.
+    y = reduced(x).to(dtype) @ p.w.to(dtype)
     if p.b is not None:
         y = y + p.b.to(dtype)
     return y
@@ -155,13 +163,11 @@ def embed(p: Embedding, ids: torch.Tensor, dtype) -> torch.Tensor:
     # shards its backward (a sharded batch gives a partial-sum gradient of
     # the replicated table), where an index's backward replicates the ids.
     # A vocabulary-sharded table gives masked partial sums, which DTensor
-    # can reduce only once: they are reduced here.
-    return reduced(F.embedding(ids, p.table.to(dtype)))
-
-
-def unembed(p: Embedding, x: torch.Tensor, dtype) -> torch.Tensor:
-    """Tied readout: logits = x @ tableᵀ."""
-    return x.to(dtype) @ p.table.to(dtype).T
+    # can reduce only once: they are reduced here.  The table's d is
+    # gathered where FSDP shards it, as FSDP gathers a parameter: left
+    # sharded, DTensor gathers the batch's ids to every rank of the axis
+    # instead, and moves the (B, T, d/n) result onto the batch's shards.
+    return reduced(F.embedding(ids, whole(p.table.to(dtype), 1)))
 
 
 # ---------------------------------------------------------------------------
@@ -241,12 +247,13 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     streams are equal, which reduces exactly to 1-D RoPE.
     """
     d_head = x.shape[-1]
-    inv = rope_freqs(d_head, theta, x.device)
+    inv = replicated_like(rope_freqs(d_head, theta, x.device), positions3)
     sec = np.asarray(sections)
     if sec.sum() != d_head // 2:
         raise ValueError(f"M-RoPE sections {sections} do not sum to "
                          f"d_head/2 = {d_head // 2}")
-    sel = torch.as_tensor(np.repeat(np.arange(3), sec), device=x.device)
+    sel = replicated_like(torch.as_tensor(np.repeat(np.arange(3), sec),
+                                          device=x.device), positions3)
     pos = positions3.index_select(0, sel)                     # (Dh/2, B, T)
     ang = pos.movedim(0, -1).to(torch.float32) * inv
     return _rotate_pairs(x, ang)

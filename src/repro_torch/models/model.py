@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -117,10 +118,23 @@ def _positions(cfg: ModelConfig, batch: dict, B: int, T_len: int, device,
 
 
 def _readout(params: LMModel, cfg: ModelConfig, x):
+    """Logits of x (B, T, D).  With more than one token a row (the loss's
+    chunks) the head is gathered where FSDP shards its d, as FSDP gathers
+    a parameter: left sharded, DTensor moves the hidden state's d onto
+    the head's shards instead, and the partial logits are reduce-scattered
+    over the batch's ranks and their gradient gathered back, (B, chunk,
+    V) a chunk.  One token a row (decode, prefill's last) moves less than
+    the head."""
     dt = getattr(torch, cfg.dtype)
     if cfg.tie_embeddings:
-        return L.unembed(params.embed, x, dt)
-    return L.linear(params.head, x, dt)
+        table = params.embed.table.to(dt)
+        if x.shape[1] > 1:
+            table = L.whole(table, 1)
+        return x.to(dt) @ table.T
+    w = params.head.w.to(dt)
+    if x.shape[1] > 1:
+        w = L.whole(w, 0)
+    return x.to(dt) @ w
 
 
 def forward(params: LMModel, cfg: ModelConfig, batch: dict, cache=None,
@@ -169,11 +183,25 @@ def _ce_terms(params: LMModel, cfg: ModelConfig, hidden, targets):
         ll = (logits * onehot).sum(dim=-1)
     else:
         # The target's logit by a gather, over the whole vocabulary.
-        logits = L.whole(logits, -1)
-        ll = logits.gather(-1, targets.long()[..., None])[..., 0]
+        ll = _target_logit(L.whole(logits, -1), targets)
     count = L.replicated_like(torch.tensor(float(targets.numel()),
                                            device=logits.device), logits)
     return (logz - ll).sum(), logz.square().sum(), count
+
+
+def _target_logit(logits, targets):
+    """(B, chunk) logits of the targets.  On DTensors (the vocabulary
+    whole) each rank gathers from its own rows: DTensor's rule for the
+    gather's backward makes a zero tensor of the whole batch's logits on
+    every rank."""
+    if not isinstance(logits, DTensor):
+        return logits.gather(-1, targets.long()[..., None])[..., 0]
+    mesh, placements = logits.device_mesh, logits.placements
+    if targets.placements != placements:
+        targets = targets.redistribute(mesh, placements)
+    ll = logits.to_local().gather(
+        -1, targets.to_local().long()[..., None])[..., 0]
+    return DTensor.from_local(ll, mesh, placements, run_check=False)
 
 
 def loss_fn(params: LMModel, cfg: ModelConfig, batch: dict,

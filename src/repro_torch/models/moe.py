@@ -75,31 +75,57 @@ class MoE(nn.Module):
 
 
 def _bmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``torch.bmm(x, w)`` of (E, M, K) and (E, K, N).  On DTensors it runs
-    on each rank's shards in ``w``'s layout: a mesh dimension that shards
-    ``w``'s experts or its contraction takes ``x``'s matching slice and
-    gives a result sharded on the experts or holding partial sums; one
-    that shards ``w``'s columns gives a result sharded on them.  The layout
-    is the rule table's, and DTensor's search for a batched product's
-    sharding over a 3-D mesh takes minutes."""
+    """(B, E, M, N) of (B, E, M, K) rows of groups and (E, K, N) experts'
+    weights, from one ``torch.bmm`` of (E, B·M, K), as the JAX package's
+    vmapped einsum.
+
+    On DTensors it runs on each rank's shards in ``w``'s layout: a mesh
+    dimension that shards ``w``'s experts or its contraction takes ``x``'s
+    matching slice and gives a result sharded on the experts or holding
+    partial sums; one that shards ``w``'s columns gives a result sharded on
+    them.  A mesh dimension that shards ``x``'s rows keeps them and takes
+    ``w`` whole there (the batch's data axes).  The layout is the rule
+    table's, and DTensor's search for a batched product's sharding over a
+    3-D mesh takes minutes."""
     if not isinstance(w, DTensor):
-        return torch.bmm(x, w)
+        return _bmm_local(x, w)
     mesh = w.device_mesh
-    need, out = [], []
-    for p in w.placements:
+    need, w_need, out, x_grad, w_grad = [], [], [], [], []
+    for xp, p in zip(x.placements, w.placements):
+        if xp.is_shard() and xp.dim == 0:    # the rows' own axis
+            need.append(xp)
+            w_need.append(Replicate())
+            out.append(xp)
+            x_grad.append(xp)
+            w_grad.append(Partial())     # each rank's rows' share
+            continue
         d = p.dim if p.is_shard() else None
-        need.append(Shard(0) if d == 0 else Shard(2) if d == 1
+        need.append(Shard(1) if d == 0 else Shard(3) if d == 1
                     else Replicate())
-        out.append(Shard(0) if d == 0 else Partial() if d == 1
-                   else Shard(2) if d == 2 else Replicate())
+        w_need.append(p)
+        out.append(Shard(1) if d == 0 else Partial() if d == 1
+                   else Shard(3) if d == 2 else Replicate())
+        # x's gradient sums over w's column shards.
+        x_grad.append(Partial() if d == 2 else need[-1])
+        w_grad.append(p)
     if list(x.placements) != need:
         x = x.redistribute(mesh, need)
-    y = torch.bmm(x.to_local(), w.to_local())
+    if list(w.placements) != w_need:
+        w = w.redistribute(mesh, w_need)
+    y = _bmm_local(x.to_local(grad_placements=x_grad),
+                   w.to_local(grad_placements=w_grad))
     return DTensor.from_local(y, mesh, out, run_check=False)
 
 
+def _bmm_local(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    B, E, M, K = x.shape
+    y = torch.bmm(x.transpose(0, 1).reshape(E, B * M, K), w)
+    return y.reshape(E, B, M, -1).transpose(0, 1)
+
+
 def _expert_ffn(bank: ExpertBank, x: torch.Tensor, cfg: ModelConfig):
-    """x: (E, C, D) → (E, C, D) by per-expert batched matrix products."""
+    """x: (B, E, C, D) → (B, E, C, D) by per-expert batched matrix
+    products."""
     dt = getattr(torch, cfg.dtype)
     up = L.reduced(_bmm(x, bank.up.to(dt)))
     if bank.gate is not None:
@@ -124,86 +150,119 @@ def top_k(probs: torch.Tensor, k: int):
 
 
 def _dispatch_group(p: MoE, cfg: ModelConfig, xg: torch.Tensor):
-    """Route one token group.  xg: (S, D) → (out (S, D), aux_loss scalar).
+    """Route one token group.  xg: (S, D) → (out (S, D), aux_loss scalar):
+    ``_dispatch_rows`` of one row.  A sharded group (a DTensor) is
+    gathered first (``_Rows`` keeps shards of the row axis only):
+    capacity and the dispatch order are the whole group's."""
+    out, aux = _dispatch_rows(p, cfg, xg[None])
+    return out[0], aux[0]
 
-    A sharded group (a DTensor) is gathered first: capacity and the
-    dispatch order are the whole group's.  Every rank then routes the
-    whole group on its local copy, with plain ops (the same on every rank,
-    and none of them needs a DTensor sharding rule), and computes its
-    shards of the expert banks (``_bmm``)."""
+
+class _Rows:
+    """The layout of the per-row dispatch on DTensors: each rank keeps the
+    rows that the batch's placement gives it (dimension 0) and every
+    other mesh dimension is replicated.  ``local`` brings a tensor to that
+    layout and returns the rank's shard, ``wrap`` makes a DTensor of a
+    rank's (B_local, ...) rows.  Without a mesh each is the identity."""
+
+    def __init__(self, x: torch.Tensor):
+        self.mesh = x.device_mesh if isinstance(x, DTensor) else None
+        if self.mesh is not None:
+            self.placements = [p if p.is_shard() and p.dim == 0
+                               else Replicate() for p in x.placements]
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return t
+        if list(t.placements) != self.placements:
+            t = t.redistribute(self.mesh, self.placements)
+        return t.to_local()
+
+    def wrap(self, t: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return t
+        return DTensor.from_local(t, self.mesh, self.placements,
+                                  run_check=False)
+
+
+def _dispatch_rows(p: MoE, cfg: ModelConfig, x: torch.Tensor):
+    """Route each row of x (B, S, D) as its own group: the JAX package's
+    ``jax.vmap`` of ``_dispatch_group``, with a leading row axis on every
+    step.  Returns (out (B, S, D), aux (B,)).
+
+    On a DTensor each rank routes the rows it holds, with plain ops (no
+    DTensor has a sharding rule for ``searchsorted``): rows sharded over
+    the batch are never gathered (a row's own tokens are: its capacity
+    and dispatch order are the whole row's).  The (B, E, C, D) buffer, a
+    DTensor of the batch's placement, reshards onto the expert banks'
+    layout in ``_bmm`` and comes back to the batch's placement for the
+    combine."""
     e = cfg.moe
     dt = getattr(torch, cfg.dtype)
-    xg = L.replicated(xg)
-    S, D = xg.shape
+    f32 = torch.float32
+    rows = _Rows(x)
+    x = rows.local(x)
+    B, S, D = x.shape
     E, K = e.n_experts, e.top_k
     C = capacity(cfg, S)
-    dev = xg.device
+    dev = x.device
 
-    logits = L.linear(p.router, xg, torch.float32)           # (S, E)
-    if isinstance(xg, DTensor):
-        mesh = xg.device_mesh
-
-        def wrap(t):
-            return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
-                                      run_check=False)
-
-        xg, logits = xg.to_local(), L.replicated(logits).to_local()
-    else:
-        def wrap(t):
-            return t
-
+    # The router is a DTensor product: where the rows are whole on every
+    # rank (one group), its contraction splits over the router's shards.
+    logits = rows.local(L.linear(p.router, rows.wrap(x), f32))  # (B,S,E)
     probs = torch.softmax(logits, dim=-1)
-    gate, idx = top_k(probs, K)                              # (S, K)
+    gate, idx = top_k(probs, K)                              # (B, S, K)
     gate = gate / gate.sum(dim=-1, keepdim=True)             # renormalize
 
     # Switch load-balance loss: E · Σ_e f_e · p_e, f from the first choice.
-    me = probs.mean(dim=0)
-    ce = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(
-        0, idx[:, 0], torch.ones(S, dtype=torch.float32, device=dev)) / S
-    aux = E * (me * ce).sum()
+    me = probs.mean(dim=1)                                   # (B, E)
+    ce = torch.zeros((B, E), dtype=f32, device=dev).scatter_add_(
+        1, idx[..., 0], torch.ones((B, S), dtype=f32, device=dev)) / S
+    aux = E * (me * ce).sum(dim=-1)                          # (B,)
 
     # --- permutation dispatch: sort (token, slot) pairs by expert.
-    flat_e = idx.reshape(-1)                                 # (S·K,)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    starts = torch.searchsorted(sorted_e, torch.arange(E, device=dev),
-                                side="left")
-    pos = torch.arange(S * K, device=dev) - starts[sorted_e]  # rank in expert
+    flat_e = idx.reshape(B, S * K)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = flat_e.gather(1, order)
+    starts = torch.searchsorted(
+        sorted_e, torch.arange(E, device=dev).expand(B, E).contiguous(),
+        side="left")
+    # Each pair's rank inside its expert's run is its slot.
+    pos = torch.arange(S * K, device=dev) - starts.gather(1, sorted_e)
     keep = pos < C
     slot = torch.where(keep, pos, 0)
     tok = order // K                                         # source token
+    row = torch.arange(B, device=dev)[:, None].expand(B, S * K)
     # Dropped pairs add 0 at slot 0 of their expert, as the JAX scatter does.
-    vals = torch.where(keep[:, None], xg[tok].to(dt), 0)
-    buf = torch.zeros((E, C, D), dtype=dt, device=dev).index_put(
-        (sorted_e, slot), vals, accumulate=True)
+    vals = torch.where(keep[..., None], x[row, tok].to(dt), 0)
+    buf = torch.zeros((B, E, C, D), dtype=dt, device=dev).index_put(
+        (row, sorted_e, slot), vals, accumulate=True)
 
-    h = _expert_ffn(p.experts, wrap(buf), cfg)               # (E, C, D)
-    if isinstance(h, DTensor):
-        h = L.replicated(h).to_local()
+    h = rows.local(_expert_ffn(p.experts, rows.wrap(buf), cfg))
 
     # --- combine: each (token, slot) reads back its expert output.
-    slot_val = torch.where(keep[:, None], h[sorted_e, slot], 0)   # (S·K, D)
-    inv = torch.argsort(order, stable=True)                  # undo the sort
-    per_slot = slot_val[inv].reshape(S, K, D)
-    out = wrap((per_slot * gate[..., None].to(dt)).sum(dim=1))
+    slot_val = torch.where(keep[..., None], h[row, sorted_e, slot], 0)
+    inv = torch.argsort(order, dim=-1, stable=True)          # undo the sort
+    per_slot = slot_val.gather(1, inv[..., None].expand(B, S * K, D))
+    out = (per_slot.reshape(B, S, K, D) * gate[..., None].to(dt)).sum(dim=2)
 
     if p.shared is not None:
-        xs = xg.to(dt)[None].expand(e.n_shared, S, D)        # (n_shared,S,D)
-        out = out + L.replicated(_expert_ffn(p.shared, wrap(xs),
-                                             cfg)).sum(dim=0)
-    return out, wrap(aux)
+        xs = x.to(dt)[:, None].expand(B, e.n_shared, S, D)
+        out = out + rows.local(_expert_ffn(p.shared, rows.wrap(xs),
+                                           cfg)).sum(dim=1)
+    return rows.wrap(out), rows.wrap(aux)
 
 
 def moe_ffn(p: MoE, cfg: ModelConfig, x: torch.Tensor):
     """x: (B, T, D) → (out, aux_loss).
 
-    Routing groups are batch rows: capacity is enforced per row, and the
-    auxiliary loss is the mean over rows.  Small inputs (at most ``GROUP``
-    tokens) and decode (one token a row) take one group of the flattened
-    batch."""
+    Routing groups are batch rows (``_dispatch_rows``): capacity is
+    enforced per row, and the auxiliary loss is the mean over rows.  Small
+    inputs (at most ``GROUP`` tokens) and decode (one token a row) take
+    one group of the flattened batch."""
     B, T, D = x.shape
     if B * T <= GROUP or T == 1:
         out, aux = _dispatch_group(p, cfg, x.reshape(B * T, D))
         return out.reshape(B, T, D), aux
-    outs, auxs = zip(*(_dispatch_group(p, cfg, x[b]) for b in range(B)))
-    return autoshard.hidden(torch.stack(outs)), torch.stack(auxs).mean()
+    out, aux = _dispatch_rows(p, cfg, x)
+    return autoshard.hidden(out), aux.mean()

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -50,6 +51,49 @@ def _chunked_scan(chunk_fn, state, xs, chunk: int = CHUNK):
             state, y = chunk_fn(state, xc)
         ys.append(y)
     return state, torch.cat(ys, dim=1)
+
+
+def _scan(make_chunk, consts, state, xs, x_chans):
+    """``_chunked_scan(make_chunk(*consts), state, xs)``.  ``consts`` are
+    (channels, ...) tensors, the state is (B, channels, ...), each of
+    ``xs`` is (B, t, ...) with its channel dimension at ``x_chans`` (None
+    for none) and the ys come back as (B, t, channels, ...).
+
+    On DTensors it runs on each rank's shards in a known layout: the batch
+    and channel shards of ``xs[0]`` (heads for RWKV-6, ``di`` for Mamba),
+    every other dimension whole.  The recurrence is independent across
+    rows and channels, so each rank's steps are the unsharded steps of its
+    slice; run as DTensor ops, each of the T steps would cost a sharding
+    decision."""
+    ref = xs[0]
+    if not isinstance(ref, DTensor):
+        return _chunked_scan(make_chunk(*consts), state, xs)
+    mesh = ref.device_mesh
+    kinds = ["b" if p.is_shard() and p.dim == 0 else
+             "c" if p.is_shard() and p.dim == x_chans[0] else None
+             for p in ref.placements]
+
+    def placements(b, c):
+        return [Shard(b) if k == "b" and b is not None else
+                Shard(c) if k == "c" and c is not None else Replicate()
+                for k in kinds]
+
+    def local(t, b, c):
+        t, pl = L.replicated_like(t, ref), placements(b, c)
+        if list(t.placements) != pl:
+            t = t.redistribute(mesh, pl)
+        # A tensor whole where the steps are split (a decay over the
+        # rows, B and C over the channels) takes a share of its gradient.
+        return t.to_local(grad_placements=[
+            Partial() if k is not None and p == Replicate() else p
+            for k, p in zip(kinds, pl)])
+
+    state, ys = _chunked_scan(
+        make_chunk(*(local(t, None, 0) for t in consts)), local(state, 0, 1),
+        tuple(local(t, 0, c) for t, c in zip(xs, x_chans)))
+    return (DTensor.from_local(state, mesh, placements(0, 1),
+                               run_check=False),
+            DTensor.from_local(ys, mesh, placements(0, 2), run_check=False))
 
 
 def _shift(x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
@@ -108,18 +152,33 @@ class RWKV6(_Vec):
 
 
 def _rwkv6_chunk(u):
-    """The WKV recurrence over one chunk: S ← w·S + kᵀv, y = r·(S + u·kᵀv)."""
+    """The WKV recurrence over one chunk: S ← w·S + kᵀv, y = r·(S + u·kᵀv).
+
+    The step's operands are laid out for the whole chunk first, one
+    (B·H, ...) slice a step: kᵀv and u·kᵀv are elementwise in the step, so
+    computing them for all steps gives the same values with a few
+    launches; a step is then two adds, a multiply and one batched
+    product."""
 
     def run(S, xs):
         r, k, v, w = xs                                     # (B,t,H,hs) fp32
+        B, t, H, hs = r.shape
+
+        def steps(a, shape):                      # (t, B·H, *shape)
+            return a.transpose(0, 1).reshape(t, B * H, *shape)
+
+        kv = steps(k, (hs, 1)) * steps(v, (1, hs))          # (t,BH,hs,hs)
+        ukv = u.repeat(B, 1)[None, :, :, None] * kv
+        S = S.reshape(B * H, hs, hs)
         ys = []
-        for t in range(r.shape[1]):
-            kv = k[:, t, :, :, None] * v[:, t, :, None, :]   # (B,H,hs,hs)
+        for r_t, w_t, kv_t, ukv_t in zip(steps(r, (1, hs)).unbind(0),
+                                          steps(w, (hs, 1)).unbind(0),
+                                          kv.unbind(0), ukv.unbind(0)):
             # Σ_k r_k (S + u·kv)_kv, as a (1, hs) @ (hs, hs) product a head.
-            y = r[:, t, :, None, :] @ (S + u[None, :, :, None] * kv)
-            S = w[:, t, :, :, None] * S + kv
-            ys.append(y[:, :, 0])
-        return S, torch.stack(ys, dim=1)
+            ys.append(torch.bmm(r_t, S + ukv_t))
+            S = w_t * S + kv_t
+        y = torch.stack(ys).reshape(t, B, H, hs).transpose(0, 1)
+        return S.reshape(B, H, hs, hs), y
 
     return run
 
@@ -132,8 +191,8 @@ def rwkv6_mix(p: RWKV6, cfg: ModelConfig, x, state=None):
     hs = cfg.ssm.head_dim
     H = D // hs
     if state is None:
-        x_prev = torch.zeros((B, D), dtype=dt, device=x.device)
-        S0 = torch.zeros((B, H, hs, hs), dtype=f32, device=x.device)
+        x_prev = L.sharded_like(torch.zeros((B, D), dtype=dt,
+                                            device=x.device), x, dims=(0, 2))
     else:
         x_prev, S0 = state
 
@@ -155,9 +214,13 @@ def rwkv6_mix(p: RWKV6, cfg: ModelConfig, x, state=None):
     v = L.linear(p.v, xv, dt).reshape(B, T, H, hs)
     g = F.silu(L.linear(p.g, xg, dt))
     u = p.u.to(f32)
+    if state is None:
+        S0 = L.sharded_like(torch.zeros((B, H, hs, hs), dtype=f32,
+                                        device=x.device), r,
+                            dims=(0, 2, None, None))
 
     xs = (r.to(f32), k.to(f32), v.to(f32), w.reshape(B, T, H, hs))
-    S, ys = _chunked_scan(_rwkv6_chunk(u), S0, xs)
+    S, ys = _scan(_rwkv6_chunk, (u,), S0, xs, (2, 2, 2, 2))
     y = ys.reshape(B, T, D).to(dt)
     y = L.norm("layernorm", p.ln_x, y)     # a layernorm over all of D
     out = L.linear(p.o, y * g, dt)
@@ -180,7 +243,8 @@ def rwkv6_channel_mix(p: RWKV6ChannelMix, cfg: ModelConfig, x, x_prev=None):
     dt = getattr(torch, cfg.dtype)
     B, T, D = x.shape
     if x_prev is None:
-        x_prev = torch.zeros((B, D), dtype=dt, device=x.device)
+        x_prev = L.sharded_like(torch.zeros((B, D), dtype=dt,
+                                            device=x.device), x, dims=(0, 2))
     dx = _shift(x, x_prev) - x
     xk = x + dx * p.mu_k.to(dt)
     xr = x + dx * p.mu_r.to(dt)
@@ -245,7 +309,7 @@ class Mamba(_Vec):
 
 def _mamba_chunk(A):
     """The selective scan over one chunk: h ← exp(Δ·A)·h + Δ·B·x,
-    y = h·C."""
+    y = h·C; a step is a multiply, an add and one batched product."""
 
     def run(h, xs):
         xc, delta, Bm, Cm = xs          # (B,t,di) dt, (B,t,di) fp32, (B,t,ds)
@@ -253,12 +317,12 @@ def _mamba_chunk(A):
         dA = torch.exp(delta[..., None] * A)                    # (B,t,di,ds)
         dBx = delta[..., None] * Bm.to(f32)[:, :, None, :] \
             * xc.to(f32)[..., None]
-        Cf = Cm.to(f32)
         ys = []
-        for t in range(xc.shape[1]):
-            h = dA[:, t] * h + dBx[:, t]
-            ys.append((h @ Cf[:, t, :, None])[..., 0])      # Σ_s h_ds C_s
-        return h, torch.stack(ys, dim=1)
+        for dA_t, dBx_t, C_t in zip(dA.unbind(1), dBx.unbind(1),
+                                    Cm.to(f32)[..., None].unbind(1)):
+            h = dA_t * h + dBx_t
+            ys.append(torch.bmm(h, C_t))                    # Σ_s h_ds C_s
+        return h, torch.stack(ys, dim=1)[..., 0]
 
     return run
 
@@ -280,8 +344,12 @@ def mamba_mix(p: Mamba, cfg: ModelConfig, x, state=None):
 
     xin, z = L.linear(p.in_proj, x, dt).chunk(2, dim=-1)    # (B,T,di) each
     if state is None:
-        conv_state = torch.zeros((B, K - 1, di), dtype=dt, device=x.device)
-        h0 = torch.zeros((B, di, s.d_state), dtype=f32, device=x.device)
+        conv_state = L.sharded_like(torch.zeros((B, K - 1, di), dtype=dt,
+                                                device=x.device), xin,
+                                    dims=(0, None, 2))
+        h0 = L.sharded_like(torch.zeros((B, di, s.d_state), dtype=f32,
+                                        device=x.device), xin,
+                            dims=(0, 2, None))
     else:
         conv_state, h0 = state
 
@@ -291,13 +359,18 @@ def mamba_mix(p: Mamba, cfg: ModelConfig, x, state=None):
     conv = sum(xpad[:, i:i + T] * p.conv_w[i].to(dt) for i in range(K))
     xc = F.silu(conv + p.conv_b.to(dt))
 
-    proj = L.linear(p.x_proj, xc, dt)
+    # x_proj's partial sums (its di sharded) are reduced, and dt_proj's
+    # rank dimension gathered where FSDP shards it: torch 2.11 resolves a
+    # contraction sharded on "data" beside batch shards by a Shard to
+    # Partial redistribution it does not have.
+    proj = L.reduced(L.linear(p.x_proj, xc, dt))
     dt_in, Bmat, Cmat = proj.split([dtr, s.d_state, s.d_state], dim=-1)
-    delta = softplus(dt_in.to(f32) @ p.dt_proj.w.to(f32)
+    delta = softplus(dt_in.to(f32) @ L.whole(p.dt_proj.w.to(f32), 0)
                      + p.dt_proj.b.to(f32))                 # (B,T,di)
     A = -torch.exp(p.A_log)                                 # (di, ds)
 
-    h, ys = _chunked_scan(_mamba_chunk(A), h0, (xc, delta, Bmat, Cmat))
+    h, ys = _scan(_mamba_chunk, (A,), h0, (xc, delta, Bmat, Cmat),
+                  (2, 2, None, None))
     y = ys.to(dt) + xc * p.D.to(dt)
     out = L.linear(p.out_proj, y * F.silu(z), dt)
     new_conv = xpad[:, -(K - 1):] if K > 1 else conv_state

@@ -16,6 +16,8 @@ import threading
 from contextlib import contextmanager
 from dataclasses import dataclass
 
+import torch
+
 from repro_torch.parallel.sharding import mesh_shape, to_placements
 
 _TLS = threading.local()
@@ -50,14 +52,36 @@ def activation_sharding(mesh, dp=("data",), tp="model", seq_sharded=False):
 
 def _constrain(x, spec: tuple):
     """``x`` redistributed to ``spec``'s placements when it is a DTensor
-    on the context's mesh; anything else is returned as it is."""
+    on the context's mesh, its gradient too, as a JAX sharding constraint
+    constrains the cotangent; anything else is returned as it is."""
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
     placements = to_placements(spec, x.device_mesh, tuple(x.shape))
-    if tuple(x.placements) == placements:
-        return x
-    return x.redistribute(x.device_mesh, placements)
+    if tuple(x.placements) != placements:
+        x = x.redistribute(x.device_mesh, placements)
+    if x.requires_grad:
+        x = _GradPlaced.apply(x)
+    return x
+
+
+class _GradPlaced(torch.autograd.Function):
+    """The identity, whose gradient takes the placements of the forward's
+    tensor.  DTensor otherwise lets a gradient keep the partial sums or
+    shards that its op's rule gives, and a partial gradient that reaches
+    a matrix product makes every rank of the axis compute the whole
+    product (torch 2.11's backward of a row-parallel projection)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g
 
 
 def _dp_size(ctx) -> int:

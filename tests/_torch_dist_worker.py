@@ -19,7 +19,18 @@ Scenarios (inputs are made from numpy seeds, the same in the test):
   placements there;
 * ``decode``: DeepSeekMoE smoke decoding 3 tokens at batch 2 on the
   (2, 2) mesh (TP with EP: the experts and the cache's head dimension
-  over "model"), the logits of each step.
+  over "model"), the logits of each step;
+* ``family/<arch>``: the other families' smoke configs trained 2 steps on
+  the (2, 2) mesh through ``_step_and_specs`` at the batch of
+  ``FAMILIES``, with ``moe.GROUP`` at ``GROUP`` so that the MoE layers
+  route each row on its own (``_dispatch_rows``): DeepSeekMoE, grok-1 and
+  Jamba at batch 2 (TP with EP: 4 experts over the model axis of 2; RWKV-6
+  at batch 2 too, its heads over "model"), HuBERT at batch 8 (pure DP);
+* ``prefill/qwen2-vl-72b``: qwen2-vl smoke's prefill step at batch 2 (TP),
+  the last position's logits;
+* ``decode/<arch>``: RWKV-6 and Jamba smoke decoding 3 tokens at the batch
+  of ``DECODE`` (RWKV-6's 2 periods would take the rule table's batch
+  dimension of its stacked states at batch 2), the logits of each step.
 """
 
 from __future__ import annotations
@@ -37,6 +48,13 @@ sys.path.insert(0, SRC)
 
 SEQ = 32
 MODES = {"dp": 8, "tp": 2, "fsdp": 8}       # mode: global batch
+#: arch: global batch of its sharded train step.
+FAMILIES = {"deepseek-moe-16b": 2, "grok-1-314b": 2, "jamba-v0.1-52b": 2,
+            "rwkv6-1.6b": 2, "hubert-xlarge": 8}
+#: arch: batch of its sharded decode.
+DECODE = {"deepseek-moe-16b": 2, "rwkv6-1.6b": 4, "jamba-v0.1-52b": 2}
+#: ``moe.GROUP`` in the family steps: below B·T, so rows route alone.
+GROUP = 16
 
 
 def psum_input() -> np.ndarray:
@@ -49,6 +67,10 @@ def psum_input() -> np.ndarray:
 def batch(cfg, B: int) -> dict:
     rng = np.random.default_rng(11)
     toks = rng.integers(0, cfg.vocab_size, size=(B, SEQ), dtype=np.int32)
+    if cfg.frontend == "audio":
+        embeds = rng.normal(0, 1, (B, SEQ, cfg.d_model)).astype(np.float32)
+        return {"embeds": torch.from_numpy(embeds),
+                "labels": torch.from_numpy(toks)}
     return {"tokens": torch.from_numpy(toks)}
 
 
@@ -65,21 +87,24 @@ def _full(t):
     return (t.full_tensor() if isinstance(t, DTensor) else t).detach().clone()
 
 
-def train(mesh, mode: str):
+def train(mesh, mode: str, arch: str = "olmo-1b"):
+    """``mode`` is one of ``MODES`` for olmo-1b, or ``"family"``: ``arch``
+    at its ``FAMILIES`` batch."""
     from repro_torch.configs import load_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.dryrun import _step_and_specs
     from repro_torch.parallel import sharding
     from repro_torch.parallel.sharding import ShardingRules
-    cfg = load_config("olmo-1b", "smoke")
-    shape = ShapeConfig("t", SEQ, MODES[mode], "train")
+    cfg = load_config(arch, "smoke")
+    B = FAMILIES[arch] if mode == "family" else MODES[mode]
+    shape = ShapeConfig("t", SEQ, B, "train")
     threshold = sharding.FSDP_THRESHOLD
     if mode == "fsdp":
         sharding.FSDP_THRESHOLD = 0
     try:
         rules = ShardingRules(cfg, mesh, shape)
         fn, _, place = _step_and_specs(cfg, shape, rules, mesh)
-        state, b = place((fresh_state(cfg), batch(cfg, MODES[mode])))
+        state, b = place((fresh_state(cfg), batch(cfg, B)))
         rows = []
         for _ in range(2):
             state, m = fn(state, b)
@@ -87,43 +112,66 @@ def train(mesh, mode: str):
     finally:
         sharding.FSDP_THRESHOLD = threshold
     sd = state.state_dict()
+    names = [k for k in ("params/embed.table",
+                         "params/stack.periods.0.sub0.attn.q.w") if k in sd]
+    names += [k for k in sd if k.startswith("params/")
+              and k.endswith("moe.experts.up")][:1]
     return state, rules, {
         "rules": (rules.use_tp, rules.fsdp, rules.dp_axes),
+        "ep": rules.ep,
         "metrics": rows,
         "params": {k: _full(v) for k, v in sd.items()},
-        "placements": {k: str(tuple(sd[k].placements)) for k in (
-            "params/embed.table", "params/stack.periods.0.sub0.attn.q.w")}}
+        "placements": {k: str(tuple(sd[k].placements)) for k in names}}
 
 
-def decode_tokens(cfg) -> torch.Tensor:
+def prefill(mesh, arch: str = "qwen2-vl-72b") -> dict:
+    """``arch``'s smoke prefill step at batch 2: the last logits."""
+    from repro_torch.configs import load_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import _step_and_specs
+    from repro_torch.models.model import init_params
+    from repro_torch.parallel.sharding import ShardingRules
+    cfg = load_config(arch, "smoke")
+    shape = ShapeConfig("p", SEQ, 2, "prefill")
+    rules = ShardingRules(cfg, mesh, shape)
+    fn, _, place = _step_and_specs(cfg, shape, rules, mesh)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params, b = place((params, batch(cfg, 2)))
+    return {"rules": (rules.use_tp, rules.fsdp, rules.dp_axes),
+            "logits": _full(fn(params, b))}
+
+
+def decode_tokens(cfg, B: int = 2) -> torch.Tensor:
     rng = np.random.default_rng(13)
-    return torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 3),
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B, 3),
                                          dtype=np.int32))
 
 
-def decode(mesh):
+def decode(mesh, arch: str = "deepseek-moe-16b"):
     from repro_torch.configs import load_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.dryrun import _step_and_specs
     from repro_torch.models.model import init_params
     from repro_torch.models.transformer import init_stack_cache
     from repro_torch.parallel.sharding import ShardingRules, distribute
-    cfg = load_config("deepseek-moe-16b", "smoke")
-    shape = ShapeConfig("d", 8, 2, "decode")
+    cfg = load_config(arch, "smoke")
+    B = DECODE[arch]
+    shape = ShapeConfig("d", 8, B, "decode")
     rules = ShardingRules(cfg, mesh, shape)
     fn, _, place = _step_and_specs(cfg, shape, rules, mesh)
-    toks = decode_tokens(cfg)
+    toks = decode_tokens(cfg, B)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    params, cache, _, _ = place((params, init_stack_cache(cfg, 2, 8, "cpu"),
+    params, cache, _, _ = place((params, init_stack_cache(cfg, B, 8, "cpu"),
                                  toks[:, :1], 0))
     logits = []
     for i in range(toks.shape[1]):
         tok = distribute(toks[:, i:i + 1], rules.batch_spec(shape), mesh)
         out, cache = fn(params, cache, tok, i)
         logits.append(_full(out))
+    first = cache["periods"][0]["sub0"]
     return {"rules": (rules.use_tp, rules.ep, rules.dp_axes),
-            "k_placements": str(tuple(
-                cache["periods"][0]["sub0"]["k"].placements)),
+            "k_placements": str(tuple(first["k"].placements))
+            if "k" in first else None,
             "logits": logits}
 
 
@@ -142,6 +190,13 @@ def main(rank: int, world: int, store_file: str, out: str) -> None:
             mesh.get_coordinate()[1]]
         res["psum2"] = compressed_psum(two, mesh.get_group("model"))
         res["decode"] = decode(mesh)
+        from repro_torch.models import moe
+        moe.GROUP = GROUP
+        for arch in FAMILIES:
+            res[f"family/{arch}"] = train(mesh, "family", arch)[2]
+        res["prefill/qwen2-vl-72b"] = prefill(mesh)
+        for arch in ("rwkv6-1.6b", "jamba-v0.1-52b"):
+            res[f"decode/{arch}"] = decode(mesh, arch)
         for mode in MODES:
             state, rules, res[f"train/{mode}"] = train(mesh, mode)
 

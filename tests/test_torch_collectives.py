@@ -19,7 +19,15 @@ locks its device count at import):
   with EP, the cache's head dimension over "model"), against the
   unsharded ``serve_step``: logits, of magnitude ~1, rtol 1e-5 / atol
   1e-5 (fp32; the scores' partial sums over the head dimension and the
-  experts' over d_model are added in another order: 1.9e-6 at most).
+  experts' over d_model are added in another order: 1.9e-6 at most);
+* every other family on the same mesh, against its unsharded step at the
+  same tolerances: DeepSeekMoE, grok-1 and Jamba trained 2 steps with EP
+  (4 experts over the model axis of 2) and ``moe.GROUP`` lowered to 16 in
+  both runs, so that each rank routes its own batch row
+  (``moe._dispatch_rows``; grok-1's bf16 moments within one bf16 step,
+  rtol 2^-7); RWKV-6 trained with its heads over "model";
+  HuBERT trained in pure DP; qwen2-vl's prefill (M-RoPE) with TP; RWKV-6
+  and Jamba decoding 3 tokens.
 
 Every process group is destroyed by the process that made it.
 """
@@ -114,16 +122,32 @@ def test_compressed_psum_copies_the_jax_bias(runs):
         np.array([1.0, 0.62598425], dtype=np.float32))
 
 
-def _unsharded(mode):
-    cfg = load_config("olmo-1b", "smoke")
+def _unsharded(mode, arch="olmo-1b"):
+    cfg = load_config(arch, "smoke")
     state = W.fresh_state(cfg)
-    b = W.batch(cfg, W.MODES[mode])
+    b = W.batch(cfg, W.FAMILIES[arch] if mode == "family"
+                else W.MODES[mode])
     fn = make_train_step(cfg, AdamWConfig())
     rows = []
     for _ in range(2):
         state, m = fn(state, b)
         rows.append({k: float(v) for k, v in m.items()})
     return rows, state.state_dict()
+
+
+def _check_train(got, rows, want):
+    for g, w in zip(got["metrics"], rows, strict=True):
+        assert g.keys() == w.keys()
+        for k in w:
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-6, err_msg=k)
+    assert got["params"].keys() == want.keys()
+    for k, v in want.items():
+        # A bf16 tensor (grok-1's moments, ``opt_state_dtype``) rounds
+        # grads that differ at 1e-7 to neighbouring values: one bf16 step.
+        rtol = 2.0 ** -7 if v.dtype == torch.bfloat16 else 1e-5
+        np.testing.assert_allclose(got["params"][k].float().numpy(),
+                                   v.float().numpy(), rtol=rtol, atol=1e-6,
+                                   err_msg=k)
 
 
 @pytest.mark.parametrize("mode,rules,placements", [
@@ -138,15 +162,7 @@ def test_sharded_train_step_matches_unsharded(runs, mode, rules, placements):
     got = runs[0][f"train/{mode}"]
     assert got["rules"] == rules
     assert tuple(got["placements"].values()) == placements
-    rows, want = _unsharded(mode)
-    for g, w in zip(got["metrics"], rows):
-        assert g.keys() == w.keys()
-        for k in w:
-            np.testing.assert_allclose(g[k], w[k], rtol=1e-6, err_msg=k)
-    assert got["params"].keys() == want.keys()
-    for k, v in want.items():
-        np.testing.assert_allclose(got["params"][k].numpy(), v.numpy(),
-                                   rtol=1e-5, atol=1e-6, err_msg=k)
+    _check_train(got, *_unsharded(mode))
 
 
 def test_elastic_restore_onto_a_smaller_mesh(runs):
@@ -161,20 +177,71 @@ def test_elastic_restore_onto_a_smaller_mesh(runs):
         assert torch.equal(got["params"][k], v), k
 
 
-def test_sharded_decode_matches_unsharded(runs):
+@pytest.mark.parametrize("arch,rules,ep", [
+    ("deepseek-moe-16b", (True, False, ("data",)), True),
+    ("grok-1-314b", (True, False, ("data",)), True),
+    ("jamba-v0.1-52b", (True, False, ("data",)), True),
+    ("rwkv6-1.6b", (True, False, ("data",)), False),
+    ("hubert-xlarge", (False, False, ("data", "model")), False),
+])
+def test_sharded_family_train_step_matches_unsharded(runs, monkeypatch,
+                                                     arch, rules, ep):
+    from repro_torch.models import moe
+    got = runs[0][f"family/{arch}"]
+    assert (got["rules"], got["ep"]) == (rules, ep)
+    if ep:      # the experts over "model", each rank's own rows routed
+        assert [v for k, v in got["placements"].items()
+                if k.endswith("moe.experts.up")] == \
+            ["(Replicate(), Shard(dim=0))"]
+        cfg = load_config(arch, "smoke")
+        assert W.FAMILIES[arch] * W.SEQ > W.GROUP
+        assert cfg.moe.n_experts % 2 == 0
+    monkeypatch.setattr(moe, "GROUP", W.GROUP)
+    _check_train(got, *_unsharded("family", arch))
+
+
+def test_sharded_mrope_prefill_matches_unsharded(runs):
+    from repro_torch.models.model import forward, init_params
+    got = runs[0]["prefill/qwen2-vl-72b"]
+    assert got["rules"] == (True, False, ("data",))
+    cfg = load_config("qwen2-vl-72b", "smoke")
+    assert cfg.rope == "mrope"
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with torch.no_grad():
+        want = forward(params, cfg, W.batch(cfg, 2), logits_mode="last")[0]
+    np.testing.assert_allclose(got["logits"].numpy(), want[:, 0].numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _unsharded_decode(got, arch):
     from repro_torch.models.model import init_params
     from repro_torch.models.transformer import init_stack_cache
     from repro_torch.serve.engine import make_serve_step
-    got = runs[0]["decode"]
-    assert got["rules"] == (True, True, ("data",))
-    assert got["k_placements"] == "(Shard(dim=0), Shard(dim=3))"
-    cfg = load_config("deepseek-moe-16b", "smoke")
+    cfg = load_config(arch, "smoke")
+    B = W.DECODE[arch]
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    cache = init_stack_cache(cfg, 2, 8, "cpu")
+    cache = init_stack_cache(cfg, B, 8, "cpu")
     step = make_serve_step(cfg)
-    toks = W.decode_tokens(cfg)
+    toks = W.decode_tokens(cfg, B)
     with torch.no_grad():
         for i, g in enumerate(got["logits"]):
             want, cache = step(params, cache, toks[:, i:i + 1], i)
             np.testing.assert_allclose(g.numpy(), want.numpy(), rtol=1e-5,
                                        atol=1e-5, err_msg=f"step {i}")
+
+
+@pytest.mark.parametrize("arch,rules", [
+    ("rwkv6-1.6b", (False, False, ("data", "model"))),
+    ("jamba-v0.1-52b", (True, True, ("data",))),
+])
+def test_sharded_ssm_decode_matches_unsharded(runs, arch, rules):
+    got = runs[0][f"decode/{arch}"]
+    assert got["rules"] == rules
+    _unsharded_decode(got, arch)
+
+
+def test_sharded_decode_matches_unsharded(runs):
+    got = runs[0]["decode"]
+    assert got["rules"] == (True, True, ("data",))
+    assert got["k_placements"] == "(Shard(dim=0), Shard(dim=3))"
+    _unsharded_decode(got, "deepseek-moe-16b")

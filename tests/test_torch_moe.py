@@ -150,6 +150,48 @@ class TestMoeFfn:
         _close(got, want)
         _close(aux, want_aux)
 
+    def test_per_row_gradients_match_jax(self, monkeypatch):
+        """The batched per-row dispatch (``_dispatch_rows``, JAX's vmap)
+        under ``jax.grad``: every parameter's gradient and the input's, of
+        <out, c> + aux at capacity factor 1.25 (drops in each row)."""
+        for mod in (jmoe, tmoe):
+            monkeypatch.setattr(mod, "GROUP", 16)
+        jcfg, jp, cfg, m = _both("deepseek-moe-16b", None, 1.25, seed=2)
+        x = _tokens((3, 32, cfg.d_model), seed=3)
+        c = _x((3, 32, cfg.d_model), seed=4) / 96
+
+        def jloss(p, xx):
+            out, aux = jmoe.moe_ffn(p, jcfg, xx)
+            return jnp.sum(out * c) + aux
+
+        jg, jgx = jax.jit(jax.grad(jloss, argnums=(0, 1)))(
+            jp, jnp.asarray(x))
+        names, params = zip(*m.named_parameters())
+        xt = torch.from_numpy(x).requires_grad_(True)
+        for p in params:
+            p.requires_grad_(True)
+        out, aux = tmoe.moe_ffn(m, cfg, xt)
+        loss = (out * torch.from_numpy(c)).sum() + aux
+        *grads, gx = torch.autograd.grad(loss, (*params, xt))
+        want = state_dict_from_jax(jax.tree.map(np.asarray, jg))
+        for name, g in zip(names, grads):
+            _close(g, want[name], msg=name)
+        _close(gx, jgx)
+
+    def test_per_row_dispatch_is_each_row_alone(self, monkeypatch):
+        """Row b of the batched dispatch is ``_dispatch_group`` of row b,
+        bit for bit, and the aux is the mean of the rows' (no Python loop
+        over rows in ``moe_ffn``)."""
+        monkeypatch.setattr(tmoe, "GROUP", 16)
+        _, _, cfg, m = _both("deepseek-moe-16b", None, 1.25, seed=5)
+        x = torch.from_numpy(_tokens((3, 32, cfg.d_model), seed=6))
+        with torch.no_grad():
+            out, aux = tmoe.moe_ffn(m, cfg, x)
+            rows = [tmoe._dispatch_group(m, cfg, x[b]) for b in range(3)]
+        for b, (o, _) in enumerate(rows):
+            assert torch.equal(out[b], o), b
+        assert torch.equal(aux, torch.stack([a for _, a in rows]).mean())
+
     def test_per_row_capacity_differs_from_one_group(self, monkeypatch):
         """The per-row path is a different function (capacity per row), not
         a tiling of the one-group path: at capacity factor 1.25 the two
