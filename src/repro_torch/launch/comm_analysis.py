@@ -13,16 +13,21 @@ the trip-count parsing reconstructs.
 DTensor (returning ``NotImplemented``, as ``CommDebugMode`` does), so it
 sees the local ops a rank runs, the collectives of each redistribution
 among them, at the local shapes.  ``collective_bytes`` sums the
-collectives with the JAX package's cost model.
+collectives with the JAX package's cost model.  Its per-op view names the
+model's source line of each op and its pass: forward, recompute, or the
+autograd node of the backward pass running it, named by the line whose
+forward call made the node (``_NodeSites``).
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import weakref
 
 import torch
 from torch.distributed.tensor import DTensor
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -82,24 +87,27 @@ class StepCounter(TorchDispatchMode):
     run under the counter held alive at once.
 
     With ``by_site`` it also keeps the per-op view: the collectives and the
-    FLOPs by source line (``sites``, ``flop_sites``), and every placement
-    change DTensor makes (``redistributions``)."""
+    FLOPs by source line and autograd node (``sites``, ``flop_sites``),
+    and every placement change DTensor makes (``redistributions``); in
+    the backward pass the source line is the forward's (``_where``)."""
 
     def __init__(self, by_site: bool = False):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
         self._flop_registry = flop_registry
         #: With ``by_site``: {(the port's source line that dispatched it,
-        #: the last DTensor op before it, HLO name): [count, bytes]} of
-        #: every collective, the per-op view of ``collectives``.
+        #: the autograd node running it or None in the forward, the last
+        #: DTensor op before it, HLO name): [count, bytes]} of every
+        #: collective, the per-op view of ``collectives``.
         self.by_site = {} if by_site else None
-        #: With ``by_site``: {(source line, aten op): FLOPs}.
+        #: With ``by_site``: {(source line, autograd node, aten op): FLOPs}.
         self.flop_by_site = {} if by_site else None
         #: With ``by_site``: {(source line, the autograd node running it or
         #: None in the forward, the global shape, the changed mesh
         #: dimensions as "axis:from->to"): count} of the redistributions.
         self.redistributed = {} if by_site else None
         self._unwatch = None
+        self._node_sites = None
         self._dtensor_op = None
         self.collectives: list[tuple[str, int]] = []
         self.flops = 0
@@ -125,12 +133,16 @@ class StepCounter(TorchDispatchMode):
     def __enter__(self):
         if self.by_site is not None:
             self._unwatch = _watch_redistributions(self._redistribution)
+            self._node_sites = _NodeSites()
+            self._node_sites.__enter__()
         return super().__enter__()
 
     def __exit__(self, *exc):
         if self._unwatch is not None:
             self._unwatch()
             self._unwatch = None
+            self._node_sites.__exit__(*exc)
+            self._node_sites = None
         return super().__exit__(*exc)
 
     def _redistribution(self, current, target) -> None:
@@ -139,9 +151,7 @@ class StepCounter(TorchDispatchMode):
             names, current.placements, target.placements) if a != b)
         if not changes:
             return
-        node = torch._C._current_autograd_node()
-        key = (_site(), node.name() if node is not None else None,
-               tuple(current.shape), changes)
+        key = (*_where(), tuple(current.shape), changes)
         self.redistributed[key] = self.redistributed.get(key, 0) + 1
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -158,7 +168,7 @@ class StepCounter(TorchDispatchMode):
             self.collectives.append((op, nbytes))
             if self.by_site is not None:
                 row = self.by_site.setdefault(
-                    (_site(), self._dtensor_op, op), [0, 0])
+                    (*_where(), self._dtensor_op, op), [0, 0])
                 row[0] += 1
                 row[1] += nbytes * (2 if op == "all-reduce" else 1)
         elif name not in _NOT_COLLECTIVES:
@@ -166,7 +176,7 @@ class StepCounter(TorchDispatchMode):
                 n = self._flop_registry[packet](*args, **kwargs, out_val=out)
                 self.flops += n
                 if self.flop_by_site is not None and n:
-                    key = (_site(), name)
+                    key = (*_where(), name)
                     self.flop_by_site[key] = self.flop_by_site.get(key, 0) + n
             if name in _TRANSCENDENTAL:
                 self.transcendentals += sum(t.numel() for t in outs)
@@ -178,17 +188,18 @@ class StepCounter(TorchDispatchMode):
     def collective_bytes(self) -> dict:
         return collective_bytes(self.collectives)
 
-    def sites(self, top: int = 10) -> list[dict]:
-        """The ``top`` rows of ``by_site`` by bytes (the cost model's)."""
+    def sites(self) -> list[dict]:
+        """The rows of ``by_site``, most bytes (the cost model's) first."""
         rows = sorted(self.by_site.items(), key=lambda kv: -kv[1][1])
-        return [dict(site=site, dtensor_op=op, collective=coll, count=n,
-                     bytes=b) for (site, op, coll), (n, b) in rows[:top]]
+        return [dict(site=site, node=node, dtensor_op=op, collective=coll,
+                     count=n, bytes=b)
+                for (site, node, op, coll), (n, b) in rows]
 
-    def flop_sites(self, top: int = 10) -> list[dict]:
-        """The ``top`` rows of ``flop_by_site`` by FLOPs."""
+    def flop_sites(self) -> list[dict]:
+        """The rows of ``flop_by_site``, most FLOPs first."""
         rows = sorted(self.flop_by_site.items(), key=lambda kv: -kv[1])
-        return [dict(site=site, op=op, flops=float(n))
-                for (site, op), n in rows[:top]]
+        return [dict(site=site, node=node, op=op, flops=float(n))
+                for (site, node, op), n in rows]
 
     def redistributions(self) -> list[dict]:
         """Every row of ``redistributed``, by source line."""
@@ -223,17 +234,70 @@ def _watch_redistributions(record):
     return unwatch
 
 
-def _site() -> str:
-    """``file:line function`` of the innermost frame of the port outside
-    this module (the model code whose op or redistribution is running)."""
-    f = sys._getframe(2)
+#: The key of an autograd node's ``metadata`` that holds its source line.
+_SITE = "repro_torch.site"
+_CHECKPOINT = os.path.join("torch", "utils", "checkpoint.py")
+_LAYERS = os.path.join("repro_torch", "models", "layers.py")
+
+
+def _where() -> tuple[str, str | None]:
+    """(site, node) of the op or redistribution running now.  ``site`` is
+    ``file:line function`` of the innermost frame of the port outside
+    this module (the model code running it), and for a helper of
+    ``models/layers.py`` also its caller's (``"... linear < ...
+    mamba_mix"``); ``node`` is None in the forward pass, "recompute" in a
+    checkpoint's recompute during the backward pass, else the name of the
+    autograd node running it.  An op of a node with no Python frame of its
+    own (the autograd engine comes before any frame of the port) takes the
+    site whose forward call made the node, where ``_NodeSites`` tagged
+    it."""
+    current = torch._C._current_autograd_node()
+    node = current.name() if current is not None else None
+    site, done, f = None, False, sys._getframe(2)
     while f is not None:
-        path = f.f_code.co_filename
-        if "repro_torch" in path and not path.endswith("comm_analysis.py"):
-            return (f"{path[path.rindex('repro_torch'):]}:{f.f_lineno} "
-                    f"{f.f_code.co_name}")
+        code = f.f_code
+        path = code.co_filename
+        if code.co_name == "_engine_run_backward":
+            if site is not None:               # a Python backward's frames
+                return site, node
+            tag = current.metadata.get(_SITE) if current is not None else None
+            if tag is not None:
+                return tag, node
+        elif site is not None and path.endswith(_CHECKPOINT):
+            return site, "recompute"
+        elif ("repro_torch" in path and not done
+              and not path.endswith("comm_analysis.py")):
+            line = (f"{path[path.rindex('repro_torch'):]}:{f.f_lineno} "
+                    f"{code.co_name}")
+            helper = path.endswith(_LAYERS)
+            if site is None:
+                site, done = line, not helper
+            elif not helper:
+                site, done = f"{site} < {line}", True
+            if done and current is None:
+                return site, None
         f = f.f_back
-    return "?"
+    return site or "?", node
+
+
+class _NodeSites(TorchFunctionMode):
+    """Tags each autograd node that a call under it makes with the call's
+    source line (``_where``), for the per-op view of the backward pass.
+    The nodes a call made are those its outputs reach before a tagged
+    one."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        site = None
+        todo = [t.grad_fn for t in _tensors(out)]
+        while todo:
+            node = todo.pop()
+            if node is None or _SITE in node.metadata:
+                continue
+            site = site or _where()[0]
+            node.metadata[_SITE] = site
+            todo.extend(f for f, _ in node.next_functions)
+        return out
 
 
 class MetaKernelCache(TorchDispatchMode):

@@ -39,7 +39,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh pod|multipod|both]
 
 Cells missing from ``--out`` run at once, each in a process of its own, as
-many as the host has cores.
+many as the host has cores.  For the per-op view of a cell call
+``run_cell(..., by_site=True)``.
 """
 
 from __future__ import annotations
@@ -61,7 +62,9 @@ from repro_torch.configs import SHAPES, applicable_shapes, load_config
 from repro_torch.configs.registry import ARCHS
 from repro_torch.launch import specs as SP
 from repro_torch.launch.comm_analysis import MetaKernelCache, StepCounter
-from repro_torch.launch.mesh import make_production_mesh, mesh_context
+from repro_torch.launch.mesh import (PRODUCTION, make_production_mesh,
+                                     mesh_context)
+from repro_torch.models import ssm
 from repro_torch.models.model import forward
 from repro_torch.parallel.sharding import (ShardingRules, distribute,
                                            distribute_module)
@@ -223,10 +226,12 @@ def _storages(tree) -> dict:
 def run_cell(arch: str, shape_name: str, mesh_kind: str,
              variant: str = "full", by_site: bool = False) -> dict:
     """The cell's record.  ``by_site`` adds the per-op view of
-    ``StepCounter``: ``collective_sites``, the ten (source line, DTensor
-    op, collective) rows of the most collective bytes; ``flop_sites``, the
-    ten (source line, op) rows of the most FLOPs; and
-    ``redistributions``, every placement change DTensor made."""
+    ``StepCounter``: ``collective_sites``, every (source line, autograd
+    node, DTensor op, collective) row by collective bytes;
+    ``flop_sites``, every (source line, autograd node, op) row by FLOPs;
+    and ``redistributions``, every placement change DTensor made.  In the
+    backward pass the source line is the forward call's that made the
+    node."""
     cfg = load_config(arch, variant)
     shape = SHAPES[shape_name]
     multi_pod = mesh_kind == "multipod"
@@ -265,6 +270,55 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
         record["flop_sites"] = counter.flop_sites()
         record["redistributions"] = counter.redistributions()
     return record
+
+
+def mamba_tp_faults(rec: dict, cfg) -> dict:
+    """Where the per-op view (``run_cell(..., by_site=True)``) of a train
+    cell of ``cfg`` on the pod mesh, Mamba's channels over "model", departs
+    from a mixer that keeps x and z on their own channels.  Each entry is
+    empty where it does not:
+
+    * ``gathers``: all-gathers at ``models/ssm.py`` of more than the fused
+      ``in_proj`` weight (fp32) a call;
+    * ``replicated``: placement changes that take a (B, T, di) or
+      (B, T, 2·di) activation or gradient to ``R`` over "model";
+    * ``in_proj``: ``_in_proj``'s product FLOPs a rank by autograd node
+      beside ``in_proj_want``, 1/16 of a data rank's whole product forward
+      and twice that in its backward (the input's and the weight's
+      gradients), where they differ;
+    * ``backward_over_forward``: {site: [forward, backward FLOPs]} where a
+      source line's backward does other than twice its forward's FLOPs
+      (more is a product run whole on a rank)."""
+    (data, model), _ = PRODUCTION["pod"]
+    shape = SHAPES[rec["shape"]]
+    B, T = shape.global_batch, shape.seq_len
+    di, _ = ssm._dims(cfg)
+    weight = cfg.d_model * 2 * di * 4
+    whole = 2 * (B // data) * T * cfg.d_model * 2 * di \
+        * cfg.layer_types.count("m")
+    want = {"forward": whole / model, "MmBackward0": 2 * whole / model}
+    in_proj, fwd, bwd = {}, {}, {}
+    for r in rec["flop_sites"]:
+        if r["site"].endswith(" _in_proj") and r["op"] == "mm":
+            node = r["node"] or "forward"
+            in_proj[node] = in_proj.get(node, 0) + r["flops"]
+        if r["node"] != "recompute":
+            d = fwd if r["node"] is None else bwd
+            d[r["site"]] = d.get(r["site"], 0) + r["flops"]
+    return dict(
+        gathers=[r for r in rec["collective_sites"]
+                 if "ssm.py" in r["site"] and r["collective"] == "all-gather"
+                 and r["bytes"] > r["count"] * weight],
+        replicated=[r for r in rec["redistributions"]
+                    if r["shape"] in ([B, T, 2 * di], [B, T, di])
+                    and any(c.startswith("model:") and c.endswith("->R")
+                            for c in r["changes"])],
+        in_proj={} if in_proj == want else in_proj,
+        in_proj_want=want,
+        backward_over_forward={
+            site: [fwd.get(site, 0), bwd.get(site, 0)]
+            for site in fwd.keys() | bwd.keys()
+            if bwd.get(site, 0) != 2 * fwd.get(site, 0)})
 
 
 def cells(archs=None, shapes=None):

@@ -20,6 +20,7 @@ RWKV-6.  The SSMs' exps are ``torch.exp``, as the JAX package's are
 from __future__ import annotations
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -27,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel import autoshard
 
 CHUNK = 128
 
@@ -333,6 +335,58 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
 
 
+def _halves(w: DTensor) -> DTensor:
+    """The fused input projection's (D, 2·di) weight as (D, 2, di), x's
+    columns and z's, each half's di sharded over the mesh axis that
+    shards ``w``'s columns.  On n ranks of that axis rank r holds the
+    fused column blocks 2r and 2r + 1 of di/n columns (x's on the first
+    half of the ranks, z's on the second) and needs block r of x and of z:
+    one all-to-all of weight blocks takes each where it is needed, and its
+    backward takes the gradient back."""
+    axes = [i for i, q in enumerate(w.placements)
+            if q.is_shard() and q.dim == 1]
+    if not axes:
+        return w.unflatten(1, (2, -1))
+    (i,) = axes
+    mesh = w.device_mesh
+    n, r = mesh.size(i), mesh.get_local_rank(i)
+    if n > 1 and (n % 2 or w.shape[1] // 2 % n):
+        raise ValueError(f"in_proj's {w.shape[1]} columns over {n} ranks: "
+                         "each half's must divide over an even count")
+    local = w.to_local()
+    rows, c = local.shape[0], local.shape[1] // 2
+    send, recv = [0] * n, [0] * n
+    for to in (2 * r % n, (2 * r + 1) % n):
+        send[to] += rows
+    for frm in (r // 2, (n + r) // 2):                  # x's block, z's
+        recv[frm] += rows
+    blocks = funcol.all_to_all_single_autograd(
+        local.unflatten(1, (2, c)).transpose(0, 1).reshape(2 * rows, c),
+        recv, send, mesh.get_group(i))
+    D, di = w.shape[0], w.shape[1] // 2
+    return DTensor.from_local(
+        blocks.reshape(2, rows, c).transpose(0, 1), mesh,
+        [Shard(2) if j == i else q for j, q in enumerate(w.placements)],
+        run_check=False, shape=(D, 2, di), stride=(2 * di, di, 1))
+
+
+def _in_proj(p: L.Linear, x, dt):
+    """The fused input projection's two halves, x and z ((B, T, di) each).
+
+    On DTensors each half is a product of its own, over the weight's
+    columns of that half (``_halves``).  The rule table shards the
+    (D, 2·di) weight's columns: split after one product, the first half
+    of an axis's ranks would hold all of x and the second all of z, and
+    the whole (B, T, 2·di) product would be gathered on every rank.  Here
+    only the weight moves, and each rank's share of x and of z is
+    computed where it stays."""
+    if not isinstance(x, DTensor):
+        return L.linear(p, x, dt).chunk(2, dim=-1)
+    wx, wz = _halves(p.w.to(dt)).unbind(1)
+    x = L.reduced(x).to(dt)
+    return x @ wx, x @ wz
+
+
 def mamba_mix(p: Mamba, cfg: ModelConfig, x, state=None):
     """x: (B, T, D) → (out, state).  state = (conv (B,K-1,di), h (B,di,ds))."""
     dt = getattr(torch, cfg.dtype)
@@ -342,7 +396,7 @@ def mamba_mix(p: Mamba, cfg: ModelConfig, x, state=None):
     di, dtr = _dims(cfg)
     K = s.d_conv
 
-    xin, z = L.linear(p.in_proj, x, dt).chunk(2, dim=-1)    # (B,T,di) each
+    xin, z = _in_proj(p.in_proj, x, dt)                     # (B,T,di) each
     if state is None:
         conv_state = L.sharded_like(torch.zeros((B, K - 1, di), dtype=dt,
                                                 device=x.device), xin,
@@ -359,11 +413,13 @@ def mamba_mix(p: Mamba, cfg: ModelConfig, x, state=None):
     conv = sum(xpad[:, i:i + T] * p.conv_w[i].to(dt) for i in range(K))
     xc = F.silu(conv + p.conv_b.to(dt))
 
-    # x_proj's partial sums (its di sharded) are reduced, and dt_proj's
-    # rank dimension gathered where FSDP shards it: torch 2.11 resolves a
-    # contraction sharded on "data" beside batch shards by a Shard to
+    # x_proj's partial sums (its di sharded) are reduced, and so is their
+    # gradient (Δ's product and the scan's B and C give partial sums,
+    # which x_proj's backward would multiply whole on every rank); dt_proj's
+    # rank dimension is gathered where FSDP shards it: torch 2.11 resolves
+    # a contraction sharded on "data" beside batch shards by a Shard to
     # Partial redistribution it does not have.
-    proj = L.reduced(L.linear(p.x_proj, xc, dt))
+    proj = autoshard.grad_placed(L.reduced(L.linear(p.x_proj, xc, dt)))
     dt_in, Bmat, Cmat = proj.split([dtr, s.d_state, s.d_state], dim=-1)
     delta = softplus(dt_in.to(f32) @ L.whole(p.dt_proj.w.to(f32), 0)
                      + p.dt_proj.b.to(f32))                 # (B,T,di)
@@ -372,6 +428,10 @@ def mamba_mix(p: Mamba, cfg: ModelConfig, x, state=None):
     h, ys = _scan(_mamba_chunk, (A,), h0, (xc, delta, Bmat, Cmat),
                   (2, 2, None, None))
     y = ys.to(dt) + xc * p.D.to(dt)
-    out = L.linear(p.out_proj, y * F.silu(z), dt)
+    # The product's gradient keeps x and z's channel shards: left to
+    # DTensor it comes back with its rows sharded over their axis, and
+    # every elementwise step of the backward moves (B, T, di) tensors
+    # between their dimensions.
+    out = L.linear(p.out_proj, autoshard.grad_placed(y * F.silu(z)), dt)
     new_conv = xpad[:, -(K - 1):] if K > 1 else conv_state
     return out, (new_conv, h)

@@ -60,8 +60,15 @@ def _constrain(x, spec: tuple):
     placements = to_placements(spec, x.device_mesh, tuple(x.shape))
     if tuple(x.placements) != placements:
         x = x.redistribute(x.device_mesh, placements)
-    if x.requires_grad:
-        x = _GradPlaced.apply(x)
+    return grad_placed(x)
+
+
+def grad_placed(x):
+    """``x``, whose gradient takes ``x``'s placements when it is a DTensor
+    that needs one; anything else as it is."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor) and x.requires_grad:
+        return _GradPlaced.apply(x)
     return x
 
 

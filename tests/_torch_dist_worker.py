@@ -9,6 +9,9 @@ Scenarios (inputs are made from numpy seeds, the same in the test):
 * ``psum``: ``compressed_psum`` of each rank's row of ``psum_input()``
   over the world group; ``psum2``: ROADMAP's two-rank example on the
   (2, 2) mesh's "model" groups;
+* ``halves``: ``ssm._halves`` of a (3, 16) weight whose columns are
+  sharded over the "model" axis of a (1, 4) mesh, and the gradient that
+  its backward gives the weight;
 * ``train/<mode>``: olmo-1b smoke trained 2 steps on a (2, 2) mesh through
   ``launch.dryrun._step_and_specs`` in three modes: ``dp`` (the rules'
   default), ``tp`` (a batch of 2 that does not fill the mesh) and ``fsdp``
@@ -26,6 +29,9 @@ Scenarios (inputs are made from numpy seeds, the same in the test):
   route each row on its own (``_dispatch_rows``): DeepSeekMoE, grok-1 and
   Jamba at batch 2 (TP with EP: 4 experts over the model axis of 2; RWKV-6
   at batch 2 too, its heads over "model"), HuBERT at batch 8 (pure DP);
+  ``family/jamba-v0.1-52b/fsdp``: Jamba so again with ``FSDP_THRESHOLD``
+  at 0, the dry-run's TP + EP + FSDP layout (Mamba's channels over
+  "model", its ``in_proj`` columns too, d_model over "data");
 * ``prefill/qwen2-vl-72b``: qwen2-vl smoke's prefill step at batch 2 (TP),
   the last position's logits;
 * ``decode/<arch>``: RWKV-6 and Jamba smoke decoding 3 tokens at the batch
@@ -87,9 +93,9 @@ def _full(t):
     return (t.full_tensor() if isinstance(t, DTensor) else t).detach().clone()
 
 
-def train(mesh, mode: str, arch: str = "olmo-1b"):
+def train(mesh, mode: str, arch: str = "olmo-1b", fsdp: bool = False):
     """``mode`` is one of ``MODES`` for olmo-1b, or ``"family"``: ``arch``
-    at its ``FAMILIES`` batch."""
+    at its ``FAMILIES`` batch, with ``FSDP_THRESHOLD`` at 0 if ``fsdp``."""
     from repro_torch.configs import load_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.dryrun import _step_and_specs
@@ -99,7 +105,7 @@ def train(mesh, mode: str, arch: str = "olmo-1b"):
     B = FAMILIES[arch] if mode == "family" else MODES[mode]
     shape = ShapeConfig("t", SEQ, B, "train")
     threshold = sharding.FSDP_THRESHOLD
-    if mode == "fsdp":
+    if mode == "fsdp" or fsdp:
         sharding.FSDP_THRESHOLD = 0
     try:
         rules = ShardingRules(cfg, mesh, shape)
@@ -114,8 +120,9 @@ def train(mesh, mode: str, arch: str = "olmo-1b"):
     sd = state.state_dict()
     names = [k for k in ("params/embed.table",
                          "params/stack.periods.0.sub0.attn.q.w") if k in sd]
-    names += [k for k in sd if k.startswith("params/")
-              and k.endswith("moe.experts.up")][:1]
+    for leaf in ("moe.experts.up", "mamba.in_proj.w"):
+        names += [k for k in sd if k.startswith("params/")
+                  and k.endswith(leaf)][:1]
     return state, rules, {
         "rules": (rules.use_tp, rules.fsdp, rules.dp_axes),
         "ep": rules.ep,
@@ -175,6 +182,28 @@ def decode(mesh, arch: str = "deepseek-moe-16b"):
             "logits": logits}
 
 
+def halves_inputs():
+    """(the weight (3, 16), the gradient of ``_halves``' (3, 2, 8))."""
+    rng = np.random.default_rng(5)
+    return (torch.from_numpy(rng.standard_normal((3, 16), np.float32)),
+            torch.from_numpy(rng.standard_normal((3, 2, 8), np.float32)))
+
+
+def halves(mesh):
+    """``ssm._halves`` on ``mesh``, the weight's columns over "model": the
+    halves and the weight's gradient, full, with their placements."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models import ssm
+    w, g = halves_inputs()
+    w = distribute_tensor(w, mesh, [Replicate(), Shard(1)]).requires_grad_()
+    h = ssm._halves(w)
+    (h * distribute_tensor(g, mesh, h.placements)).sum().backward()
+    return {"full": _full(h), "placements": str(tuple(h.placements)),
+            "grad": _full(w.grad),
+            "grad_placements": str(tuple(w.grad.placements))}
+
+
 def main(rank: int, world: int, store_file: str, out: str) -> None:
     dist.init_process_group("gloo", store=dist.FileStore(store_file, world),
                             rank=rank, world_size=world)
@@ -189,11 +218,14 @@ def main(rank: int, world: int, store_file: str, out: str) -> None:
         two = torch.tensor([[1.0, 0.25], [0.5, 0.5]])[
             mesh.get_coordinate()[1]]
         res["psum2"] = compressed_psum(two, mesh.get_group("model"))
+        res["halves"] = halves(make_mesh((1, 4), ("data", "model"), "cpu"))
         res["decode"] = decode(mesh)
         from repro_torch.models import moe
         moe.GROUP = GROUP
         for arch in FAMILIES:
             res[f"family/{arch}"] = train(mesh, "family", arch)[2]
+        res["family/jamba-v0.1-52b/fsdp"] = train(
+            mesh, "family", "jamba-v0.1-52b", fsdp=True)[2]
         res["prefill/qwen2-vl-72b"] = prefill(mesh)
         for arch in ("rwkv6-1.6b", "jamba-v0.1-52b"):
             res[f"decode/{arch}"] = decode(mesh, arch)

@@ -7,6 +7,10 @@ locks its device count at import):
 * ``compressed_psum`` over four ranks, bit-equal to the JAX package's, and
   ROADMAP's two-rank example ([1, 0.25] and [0.5, 0.5] give [1.0, 0.62598]
   on both ranks: the JAX package's bias, copied);
+* Mamba's fused ``in_proj`` weight split into x's and z's halves
+  (``ssm._halves``) with its columns over the "model" axis of a (1, 4)
+  mesh: the halves equal the whole weight's, and the backward gives the
+  weight its gradient in its own placements, both bit for bit;
 * olmo-1b smoke trained 2 steps on a (2, 2) mesh through the rule table's
   placements, in three modes (pure DP, TP with a batch of 2 that does not
   fill the mesh, and TP-less FSDP with ``FSDP_THRESHOLD`` at 0), against
@@ -25,7 +29,10 @@ locks its device count at import):
   (4 experts over the model axis of 2) and ``moe.GROUP`` lowered to 16 in
   both runs, so that each rank routes its own batch row
   (``moe._dispatch_rows``; grok-1's bf16 moments within one bf16 step,
-  rtol 2^-7); RWKV-6 trained with its heads over "model";
+  rtol 2^-7); Jamba again with ``FSDP_THRESHOLD`` at 0 (the dry-run
+  cell's TP + EP + FSDP layout: Mamba's channels and its fused
+  ``in_proj``'s columns over "model", x and z each computed on its own
+  columns); RWKV-6 trained with its heads over "model";
   HuBERT trained in pure DP; qwen2-vl's prefill (M-RoPE) with TP; RWKV-6
   and Jamba decoding 3 tokens.
 
@@ -122,6 +129,19 @@ def test_compressed_psum_copies_the_jax_bias(runs):
         np.array([1.0, 0.62598425], dtype=np.float32))
 
 
+def test_mamba_in_proj_halves_on_a_model_axis_of_4(runs):
+    """On 4 ranks the all-to-all of ``_halves`` moves blocks between
+    different ranks (on 2 each rank keeps one of its blocks): rank r
+    holds fused blocks 2r and 2r + 1 and needs x's block r and z's."""
+    res, _ = runs
+    got = res["halves"]
+    w, g = W.halves_inputs()
+    assert got["placements"] == "(Replicate(), Shard(dim=2))"
+    assert got["grad_placements"] == "(Replicate(), Shard(dim=1))"
+    assert torch.equal(got["full"], w.unflatten(1, (2, -1)))
+    assert torch.equal(got["grad"], g.flatten(1))
+
+
 def _unsharded(mode, arch="olmo-1b"):
     cfg = load_config(arch, "smoke")
     state = W.fresh_state(cfg)
@@ -183,19 +203,28 @@ def test_elastic_restore_onto_a_smaller_mesh(runs):
     ("jamba-v0.1-52b", (True, False, ("data",)), True),
     ("rwkv6-1.6b", (True, False, ("data",)), False),
     ("hubert-xlarge", (False, False, ("data", "model")), False),
+    ("jamba-v0.1-52b/fsdp", (True, True, ("data",)), True),
 ])
 def test_sharded_family_train_step_matches_unsharded(runs, monkeypatch,
                                                      arch, rules, ep):
     from repro_torch.models import moe
     got = runs[0][f"family/{arch}"]
     assert (got["rules"], got["ep"]) == (rules, ep)
+    fsdp = arch.endswith("/fsdp")
+    arch = arch.removesuffix("/fsdp")
     if ep:      # the experts over "model", each rank's own rows routed
         assert [v for k, v in got["placements"].items()
                 if k.endswith("moe.experts.up")] == \
-            ["(Replicate(), Shard(dim=0))"]
+            ["(Shard(dim=1), Shard(dim=0))" if fsdp else
+             "(Replicate(), Shard(dim=0))"]
         cfg = load_config(arch, "smoke")
         assert W.FAMILIES[arch] * W.SEQ > W.GROUP
         assert cfg.moe.n_experts % 2 == 0
+    if arch.startswith("jamba"):    # Mamba's fused in_proj: columns split
+        assert [v for k, v in got["placements"].items()
+                if k.endswith("mamba.in_proj.w")] == \
+            ["(Shard(dim=0), Shard(dim=1))" if fsdp else
+             "(Replicate(), Shard(dim=1))"]
     monkeypatch.setattr(moe, "GROUP", W.GROUP)
     _check_train(got, *_unsharded("family", arch))
 

@@ -8,7 +8,10 @@ count written here (rtol 1e-9: ``torch.utils.flop_counter`` counts
 collectives, as ``tests/test_hlo_analysis.py`` holds the JAX package's
 trip counts.  The sharded path of every family: smoke cells of each, one
 in the full DeepSeekMoE cell's TP + EP + FSDP layout (per-rank FLOPs
-exact, no batch moved over "data"), and the repaired DTensor gaps.
+exact, no batch moved over "data"), one in the full Jamba cell's TP +
+FSDP layout (Mamba's fused ``in_proj`` FLOPs exact, no activation
+gathered at its split, every backward twice its forward), and the
+repaired DTensor gaps.
 Every fake process group is destroyed on exit.
 """
 
@@ -272,6 +275,39 @@ def test_moe_tp_ep_fsdp_train_cell(monkeypatch):
         for c in r["changes"]:
             if c.startswith("data:"):
                 assert c.startswith("data:S(") and "->S(" in c, r
+
+
+def test_mamba_tp_fsdp_train_cell(monkeypatch):
+    """jamba-v0.1-52b x train_4k x pod's layout (TP and FSDP, the
+    thresholds lowered) at the smoke widths, cut to one Mamba layer and
+    one attention + MoE layer.  The rule table shards Mamba's fused
+    (D, 2·di) ``in_proj`` on its columns over "model": x and z must each
+    come out of the projection sharded on their di, with no (B, T, 2·di)
+    or (B, T, di) activation or gradient gathered over "model" (a split
+    of the fused product gathered it on every rank; only weights may be
+    gathered at the mixer), and each rank must do 1/16 of the
+    projection's product and of its backward (the input's and the
+    weight's gradients), on its 16 of the 256 rows.  No product's
+    backward may do more than its two gradients, each as large as the
+    forward product on the rank (x_proj's partial-sum gradient made its
+    input gradient whole on every rank)."""
+    from repro_torch.models import ssm
+    from repro_torch.parallel import sharding
+    cfg = load_config("jamba-v0.1-52b", "smoke").replace(n_layers=2,
+                                                         layer_types="ma")
+    monkeypatch.setattr(sharding, "TP_THRESHOLD", 0)
+    monkeypatch.setattr(sharding, "FSDP_THRESHOLD", 0)
+    monkeypatch.setattr(D, "load_config", lambda arch, variant: cfg)
+    rec = D.run_cell("jamba-v0.1-52b", "train_4k", "pod", "smoke",
+                     by_site=True)
+    assert rec["fsdp"]
+    faults = D.mamba_tp_faults(rec, cfg)
+    B, T, (di, _) = 256, 4096, ssm._dims(cfg)
+    whole = 2 * (B // 16) * T * cfg.d_model * (2 * di)  # a data rank's
+    assert faults.pop("in_proj_want") == {"forward": whole / 16,
+                                          "MmBackward0": 2 * whole / 16}
+    assert faults == {"gathers": [], "replicated": [], "in_proj": {},
+                      "backward_over_forward": {}}
 
 
 def test_shard_to_shard_is_an_all_to_all():
