@@ -1,0 +1,10 @@
+"""The benchmark's CPU tests: run from the root of a checkout with
+``PYTHONPATH=src python -m pytest -q bench/tests``."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT), str(ROOT / "src")):
+    if p not in sys.path:
+        sys.path.insert(0, p)
