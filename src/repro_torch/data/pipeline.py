@@ -22,6 +22,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.model import resolve_device
+from repro_torch.obs import card
 
 
 @dataclass(frozen=True)
@@ -85,6 +86,7 @@ class TokenPipeline:
         return {"tokens": tokens[:, :T]}
 
     def host_batch_at(self, step: int) -> dict:
-        full = self.global_batch_at(step)
-        lo = self.host * self.host_batch
-        return {k: v[lo:lo + self.host_batch] for k, v in full.items()}
+        with card.span("data.batch"):
+            full = self.global_batch_at(step)
+            lo = self.host * self.host_batch
+            return {k: v[lo:lo + self.host_batch] for k, v in full.items()}

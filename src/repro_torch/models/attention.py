@@ -23,6 +23,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.obs import card
 from repro_torch.parallel import autoshard
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
@@ -259,7 +260,16 @@ def attention(p: Attention, cfg: ModelConfig, x, positions, kv_cache=None,
     writes the new keys and values into the cache IN PLACE at
     ``cache_index`` (the JAX package returns an updated copy; writing in
     place saves one cache copy per layer per step) and attends over the
-    cache.  Returns (out, kv_cache)."""
+    cache.  Returns (out, kv_cache).  The card span ``attn`` covers it all,
+    ``attn.core`` the score product to the PV product."""
+    with card.span("attn") as sp:
+        out = _attention(p, cfg, sp.input(x), positions, kv_cache,
+                         cache_index)
+        return sp.output(out), kv_cache
+
+
+def _attention(p: Attention, cfg: ModelConfig, x, positions, kv_cache,
+               cache_index):
     dt = getattr(torch, cfg.dtype)
     B, T, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -286,12 +296,23 @@ def attention(p: Attention, cfg: ModelConfig, x, positions, kv_cache=None,
     g = H // Hkv
     qg = L.split_dim(q, 2, (Hkv, g))
 
-    if T > 1 and T * S > CHUNKED_THRESHOLD and S % KV_CHUNK == 0:
-        valid = None if kv_cache is None else q_offset + T
-        out = _chunked_attention(cfg, qg, k, v, q_offset, valid).to(dt)
-        heads = _Heads(qg, k) if isinstance(out, DTensor) else None
-        return L.linear(p.o, _merge_heads(heads, out), dt), kv_cache
+    with card.span("attn.core") as sp:
+        qg, k, v = sp.input(qg), sp.input(k), sp.input(v)
+        if T > 1 and T * S > CHUNKED_THRESHOLD and S % KV_CHUNK == 0:
+            valid = None if kv_cache is None else q_offset + T
+            out = sp.output(_chunked_attention(cfg, qg, k, v, q_offset,
+                                               valid).to(dt))
+        else:
+            out = sp.output(_scores_pv(cfg, qg, k, v, q_offset,
+                                       kv_cache is not None, dt))
+    heads = _Heads(qg, k) if isinstance(out, DTensor) else None
+    return L.linear(p.o, _merge_heads(heads, out), dt)
 
+
+def _scores_pv(cfg: ModelConfig, qg, k, v, q_offset: int, cached: bool, dt):
+    """Attention over the materialised (B, Hkv, g, T, S) score matrix:
+    (B, T, Hkv, g, Dh) in ``dt``."""
+    T, S, Dh = qg.shape[1], k.shape[1], qg.shape[-1]
     # Scores in fp32, as the JAX package's preferred_element_type=float32:
     # the products of bf16 values are exact in fp32, and a bf16 matmul would
     # round the scores to bf16 before the mask and the softmax.
@@ -300,16 +321,16 @@ def attention(p: Attention, cfg: ModelConfig, x, positions, kv_cache=None,
                                qg.to(torch.float32), _Heads.QG,
                                k.to(torch.float32), _Heads.KV, _Heads.SCORES))
     scores = scores * (Dh ** -0.5)
-    bias = _mask_bias(cfg, T, S, q_offset, scores.dtype, x.device)
-    if kv_cache is not None:
+    bias = _mask_bias(cfg, T, S, q_offset, scores.dtype, qg.device)
+    if cached:
         # Mask out cache slots beyond the current position.
-        valid = torch.arange(S, device=x.device)[None, :] <= (q_offset + T - 1)
+        valid = torch.arange(S, device=qg.device)[None, :] \
+            <= (q_offset + T - 1)
         bias = bias + torch.where(valid, 0.0, NEG_INF).to(scores.dtype)
     scores = scores + L.replicated_like(bias, scores)[None, None, None]
     w = _softmax(cfg, scores).to(dt)
-    out = _einsum(heads, "bhgts,bshd->bthgd", w, _Heads.PROBS, v.to(dt),
-                  _Heads.KV, _Heads.QG)
-    return L.linear(p.o, _merge_heads(heads, out), dt), kv_cache
+    return _einsum(heads, "bhgts,bshd->bthgd", w, _Heads.PROBS, v.to(dt),
+                   _Heads.KV, _Heads.QG)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -23,6 +23,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.obs import card
 from repro_torch.parallel import autoshard
 
 GROUP = 4096          # tokens per dispatch group (bounds the (E,C,D) buffer)
@@ -209,47 +210,61 @@ def _dispatch_rows(p: MoE, cfg: ModelConfig, x: torch.Tensor):
 
     # The router is a DTensor product: where the rows are whole on every
     # rank (one group), its contraction splits over the router's shards.
-    logits = rows.local(L.linear(p.router, rows.wrap(x), f32))  # (B,S,E)
-    probs = torch.softmax(logits, dim=-1)
-    gate, idx = top_k(probs, K)                              # (B, S, K)
-    gate = gate / gate.sum(dim=-1, keepdim=True)             # renormalize
+    with card.span("moe.router") as sp:
+        logits = rows.local(L.linear(p.router, rows.wrap(sp.input(x)),
+                                     f32))                      # (B,S,E)
+        probs = torch.softmax(logits, dim=-1)
+        gate, idx = top_k(probs, K)                              # (B, S, K)
+        gate = sp.output(gate / gate.sum(dim=-1, keepdim=True))  # renormalize
 
-    # Switch load-balance loss: E · Σ_e f_e · p_e, f from the first choice.
-    me = probs.mean(dim=1)                                   # (B, E)
-    ce = torch.zeros((B, E), dtype=f32, device=dev).scatter_add_(
-        1, idx[..., 0], torch.ones((B, S), dtype=f32, device=dev)) / S
-    aux = E * (me * ce).sum(dim=-1)                          # (B,)
+        # Switch load-balance loss: E · Σ_e f_e · p_e, f from the first
+        # choice.
+        me = probs.mean(dim=1)                                   # (B, E)
+        ce = torch.zeros((B, E), dtype=f32, device=dev).scatter_add_(
+            1, idx[..., 0], torch.ones((B, S), dtype=f32, device=dev)) / S
+        aux = E * (me * ce).sum(dim=-1)                          # (B,)
 
     # --- permutation dispatch: sort (token, slot) pairs by expert.
-    flat_e = idx.reshape(B, S * K)
-    order = torch.argsort(flat_e, dim=-1, stable=True)
-    sorted_e = flat_e.gather(1, order)
-    starts = torch.searchsorted(
-        sorted_e, torch.arange(E, device=dev).expand(B, E).contiguous(),
-        side="left")
-    # Each pair's rank inside its expert's run is its slot.
-    pos = torch.arange(S * K, device=dev) - starts.gather(1, sorted_e)
-    keep = pos < C
-    slot = torch.where(keep, pos, 0)
-    tok = order // K                                         # source token
-    row = torch.arange(B, device=dev)[:, None].expand(B, S * K)
-    # Dropped pairs add 0 at slot 0 of their expert, as the JAX scatter does.
-    vals = torch.where(keep[..., None], x[row, tok].to(dt), 0)
-    buf = torch.zeros((B, E, C, D), dtype=dt, device=dev).index_put(
-        (row, sorted_e, slot), vals, accumulate=True)
+    with card.span("moe.dispatch") as sp:
+        xd = sp.input(x)
+        flat_e = idx.reshape(B, S * K)
+        order = torch.argsort(flat_e, dim=-1, stable=True)
+        sorted_e = flat_e.gather(1, order)
+        starts = torch.searchsorted(
+            sorted_e, torch.arange(E, device=dev).expand(B, E).contiguous(),
+            side="left")
+        # Each pair's rank inside its expert's run is its slot.
+        pos = torch.arange(S * K, device=dev) - starts.gather(1, sorted_e)
+        keep = pos < C
+        slot = torch.where(keep, pos, 0)
+        tok = order // K                                     # source token
+        row = torch.arange(B, device=dev)[:, None].expand(B, S * K)
+        # Dropped pairs add 0 at slot 0 of their expert, as the JAX scatter
+        # does.
+        vals = torch.where(keep[..., None], xd[row, tok].to(dt), 0)
+        buf = sp.output(torch.zeros((B, E, C, D), dtype=dt,
+                                    device=dev).index_put(
+            (row, sorted_e, slot), vals, accumulate=True))
+        sp.count(routed=B * S * K, slots=B * E * C, kept=keep)
 
-    h = rows.local(_expert_ffn(p.experts, rows.wrap(buf), cfg))
+    with card.span("moe.experts") as sp:
+        h = sp.output(rows.local(_expert_ffn(
+            p.experts, rows.wrap(sp.input(buf)), cfg)))
 
     # --- combine: each (token, slot) reads back its expert output.
-    slot_val = torch.where(keep[..., None], h[row, sorted_e, slot], 0)
-    inv = torch.argsort(order, dim=-1, stable=True)          # undo the sort
-    per_slot = slot_val.gather(1, inv[..., None].expand(B, S * K, D))
-    out = (per_slot.reshape(B, S, K, D) * gate[..., None].to(dt)).sum(dim=2)
+    with card.span("moe.combine") as sp:
+        hc = sp.input(h)
+        slot_val = torch.where(keep[..., None], hc[row, sorted_e, slot], 0)
+        inv = torch.argsort(order, dim=-1, stable=True)      # undo the sort
+        per_slot = slot_val.gather(1, inv[..., None].expand(B, S * K, D))
+        out = sp.output((per_slot.reshape(B, S, K, D)
+                         * gate[..., None].to(dt)).sum(dim=2))
 
     if p.shared is not None:
-        xs = x.to(dt)[:, None].expand(B, e.n_shared, S, D)
-        out = out + rows.local(_expert_ffn(p.shared, rows.wrap(xs),
-                                           cfg)).sum(dim=1)
+        with card.span("moe.experts") as sp:
+            xs = sp.input(x).to(dt)[:, None].expand(B, e.n_shared, S, D)
+            out = out + sp.output(rows.local(_expert_ffn(
+                p.shared, rows.wrap(xs), cfg)).sum(dim=1))
     return rows.wrap(out), rows.wrap(aux)
 
 

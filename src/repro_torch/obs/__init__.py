@@ -37,8 +37,14 @@ On top of the single-run layers sit the *differential* ones:
 * **report** (``obs.report``) — a self-contained HTML report (timeline,
   stall bars, waterfall, trend sparklines) plus a terminal summary.
 
-The analytic model, and so every layer here, runs on the host; the CUDA
-kernels' launches are counted by their wrappers, not by this package.
+The analytic model, and so every layer above, runs on the host; the CUDA
+kernels' launches are counted by their wrappers.  The port's own card
+path is traced by one more module, outside the JAX package's ``__all__``:
+
+* **card spans** (``obs.card``) — spans and counters at the port's layer
+  boundaries (training step, attention, MoE, optimizer, serving engine),
+  recorded while ``torch.profiler`` records, as host ranges in its trace
+  and CUDA-event device times read after it (:func:`card.read`).
 """
 
 from repro_torch.obs import record as record  # noqa: F401
@@ -47,6 +53,7 @@ from repro_torch.obs import spans as spans  # noqa: F401
 from repro_torch.obs import export as export  # noqa: F401
 from repro_torch.obs import attrib as attrib  # noqa: F401
 from repro_torch.obs import history as history  # noqa: F401
+from repro_torch.obs import card as card  # noqa: F401
 from repro_torch.obs.record import (TraceRecorder,  # noqa: F401
                                     active_recorder, hooks_bypassed,
                                     recording)

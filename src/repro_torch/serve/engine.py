@@ -23,6 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.model import forward, resolve_device
 from repro_torch.models.transformer import init_stack_cache
+from repro_torch.obs import card
 from repro_torch.obs import metrics as _obs_metrics
 from repro_torch.obs.spans import span as _obs_span
 
@@ -250,20 +251,30 @@ class ServeEngine:
                 f"max_len or decode fewer steps.")
         if n_steps == 0:
             return GenerationResult(prompts.astype(np.int32), 0)
+        with card.span("serve.generate", unit=True):
+            return self._generate(prompts, n_steps)
+
+    def _generate(self, prompts: np.ndarray,
+                  n_steps: int) -> GenerationResult:
+        B, plen = prompts.shape
         slot_seeds = self._slot_seeds(prompts)
         toks = torch.as_tensor(prompts, dtype=torch.int64, device=self.device)
         cache = make_cache(self.cfg, B, self.max_len, self.device)
         t0 = time.perf_counter()
-        logits, cache = self._prefill(self.params, cache, toks)
+        with card.span("serve.prefill"):
+            logits, cache = self._prefill(self.params, cache, toks)
         self._sync()
         t1 = time.perf_counter()
         out, seen = [toks], []
         for i in range(n_steps):
             seen.append(logits)
-            tok = self._sample(logits, i, slot_seeds)[:, None]
+            with card.span("serve.sample"):
+                tok = self._sample(logits, i, slot_seeds)[:, None]
             out.append(tok)
             if i + 1 < n_steps:
-                logits, cache = self._step(self.params, cache, tok, plen + i)
+                with card.span("serve.decode_step"):
+                    logits, cache = self._step(self.params, cache, tok,
+                                               plen + i)
         tokens = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
         t2 = time.perf_counter()
         return GenerationResult(tokens, n_steps, torch.stack(seen, dim=1),

@@ -25,6 +25,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import (LMModel, load_params, loss_fn,
                                       working_dtype)
+from repro_torch.obs import card
 from repro_torch.parallel.compress import quantize_dequantize
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          init_opt_state)
@@ -151,22 +152,26 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     is then the compressed gradients' norm.
     """
 
-    def grads_of(model: LMModel, batch: dict):
+    def grads_of(model: LMModel, batch: dict, dtype=None):
+        """(loss, metrics, gradients by name), each gradient cast to
+        ``dtype`` where one is given."""
         names, params = zip(*model.named_parameters())
-        loss, metrics = loss_fn(model, cfg, batch)
-        # A parameter the loss does not read (hubert's token embedding,
-        # RWKV's ``mu_x``) has a zero gradient, as under ``jax.grad``.
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else _placed_like(g, p)
-                 for p, g in zip(params, grads)]
+        with card.span("train.forward"):
+            loss, metrics = loss_fn(model, cfg, batch)
+        with card.span("train.backward"):
+            # A parameter the loss does not read (hubert's token embedding,
+            # RWKV's ``mu_x``) has a zero gradient, as under ``jax.grad``.
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else _placed_like(g, p)
+                     for p, g in zip(params, grads)]
+            if dtype is not None:
+                grads = [g.to(dtype) for g in grads]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             dict(zip(names, grads))
 
     def compute_grads(model: LMModel, batch: dict):
         if n_microbatches == 1:
-            loss, metrics, grads = grads_of(model, batch)
-            return loss, metrics, {k: g.to(torch.float32)
-                                   for k, g in grads.items()}
+            return grads_of(model, batch, torch.float32)
         for k, x in batch.items():
             if x.shape[0] % n_microbatches:
                 raise ValueError(f"batch[{k!r}] has {x.shape[0]} rows, not "
@@ -180,8 +185,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                 acc = {k: torch.zeros(g.shape, dtype=torch.float32,
                                       device=g.device)
                        for k, g in grads.items()}
-            for k, g in grads.items():
-                acc[k] += g.to(torch.float32) / n_microbatches
+            with card.span("train.backward"):
+                for k, g in grads.items():
+                    acc[k] += g.to(torch.float32) / n_microbatches
             losses.append(loss)
             metricses.append(metrics)
         metrics = {k: torch.stack([m[k] for m in metricses]).mean()
@@ -189,12 +195,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         return torch.stack(losses).mean(), metrics, acc
 
     def train_step(state: TrainState, batch: dict):
-        loss, metrics, grads = compute_grads(state.model, batch)
-        if compress_pod_grads:
-            grads = compress_grads(grads, state.params)
-        opt_metrics = adamw_update(opt_cfg, state.params, grads, state.opt)
-        del grads
-        state.sync_working_copy()
+        with card.span("train.step", unit=True):
+            loss, metrics, grads = compute_grads(state.model, batch)
+            with card.span("train.optimizer"):
+                if compress_pod_grads:
+                    grads = compress_grads(grads, state.params)
+                opt_metrics = adamw_update(opt_cfg, state.params, grads,
+                                           state.opt)
+                del grads
+                state.sync_working_copy()
         return state, dict(metrics, loss=loss, **opt_metrics)
 
     return train_step
