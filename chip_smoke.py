@@ -6,6 +6,7 @@
   python3 chip_smoke.py --phase 11    # build, then phase 11 alone
   python3 chip_smoke.py --phase 12    # build, then phase 12 alone
   python3 chip_smoke.py --phase 13    # build, then phase 13 alone
+  python3 chip_smoke.py --phase 14    # build, then phase 14 alone
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line).  Every line printed also goes to
@@ -252,7 +253,9 @@ and prints no result line).  Every line printed also goes to
 13. The sharded path of the MoE and SSM families (``placed_phase``), on a
     (1, 1) NCCL mesh as in phase 12, each model freed before the next:
     (a) DeepSeekMoE-16B at full width and depth, batch 4, prompt 128, 8
-        greedy tokens: ``ServeEngine.generate`` unsharded, then the same
+        greedy tokens: ``ServeEngine.generate`` unsharded (its decode
+        attention on the einsum path that DTensors take,
+        ``attention._scores_pv``, not the decode kernels), then the same
         loop through ``_step_and_specs``' decode placement (parameters and
         cache placed by the rule table, the engine's sampler on the
         gathered logits): identical tokens, the same launches, softmax on
@@ -292,7 +295,21 @@ and prints no result line).  Every line printed also goes to
         step, ``_halves`` called 7 times a step.
     The JSON line's ``launches_sharded_moe`` (softmax, exp, uniform) are
     (b)'s sharded run's.
-14. The last line: ``{"ok": true, "device": {...}}``.
+14. Decode attention (``decode_phase``), OLMo-1B's 16 KV heads of 128:
+    (a) at olmo-1b.decode's shape (batch 128, 1,153 cache slots, position
+        1,088) and at batch 4 (161 slots, position 144), ``decode_scores``
+        and ``decode_pv`` against fp64 on the kept slots (scores within
+        1e-5, the PV product within 1 bf16 ulp, or 1e-6, of the fp64 sum
+        rounded to bf16; the plain versions' errors printed beside), the
+        softmax exactly 0 past the position, each timed (device ms from
+        CUDA-graph replays, and the eager call) beside its plain version
+        and its bound, the bytes it must move at 3.35 TB/s; the kernels'
+        chain (``attention._decode``) beside the einsum path it replaces
+        (``attention._scores_pv``), softmax included in both;
+    (b) OLMo-1B at full width served as phase 4 (a), 8 tokens: each kernel
+        launches once a layer and decode step, never in the prefill.
+    The numbers also go to ``chiprun_out/decode_attn.json``.
+15. The last line: ``{"ok": true, "device": {...}}``.
 
 Phase 2 also times an empty kernel at the uniform kernel's grids
 (``tools/launch_floor.py``, built beside the kernels): the card's floor
@@ -3097,11 +3114,27 @@ def _placed_generate(torch, cfg, params, prompts, n_steps: int,
     return tokens, t1 - t0, time.perf_counter() - t1
 
 
+@contextlib.contextmanager
+def _einsum_decode():
+    """The unsharded engine's decode attention on the einsum path that the
+    placements take (``attention._scores_pv``: DTensors keep it), in place
+    of the decode-attention kernels, so that both runs sum alike."""
+    from repro_torch.models import attention as A
+    kernels = A._decode
+    A._decode = lambda cfg, qg, k, v, pos, dt, sp: A._scores_pv(
+        cfg, qg, k, v, pos, True, dt)
+    try:
+        yield
+    finally:
+        A._decode = kernels
+
+
 def _serve_both(torch, smi, label, cfg, prompts, n_steps, temperature,
                 seed, mesh):
-    """``cfg`` at full width served unsharded through ``ServeEngine`` and
-    then through the rule table's placements on ``mesh`` (the same
-    parameters, placed in place): the tokens must be identical.  Returns
+    """``cfg`` at full width served unsharded through ``ServeEngine`` (its
+    decode attention on the einsum path, ``_einsum_decode``) and then
+    through the rule table's placements on ``mesh`` (the same parameters,
+    placed in place): the tokens must be identical.  Returns
     (unsharded launches and paths, sharded launches, paths and DTensor
     route counts, the printed row)."""
     from repro_torch.models.model import init_params
@@ -3114,8 +3147,9 @@ def _serve_both(torch, smi, label, cfg, prompts, n_steps, temperature,
                          "cuda")
     engine = ServeEngine(cfg, params, plen + n_steps, B, temperature, seed,
                          device="cuda")
-    res, plain, plain_paths, _ = _main_path_run(
-        torch, lambda: engine.generate(prompts, n_steps))
+    with _einsum_decode():
+        res, plain, plain_paths, _ = _main_path_run(
+            torch, lambda: engine.generate(prompts, n_steps))
     del engine
     with _dtensor_route() as route:
         (tokens, pre_s, dec_s), launches, paths, _ = _main_path_run(
@@ -3378,6 +3412,127 @@ def placed_phase(torch, smi) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: decode attention
+# ---------------------------------------------------------------------------
+
+#: (label, batch, cache slots, position): olmo-1b.decode's cell (128 chats,
+#: 1,024 + 128 + 1 slots, the mean position of its decode steps) and phase
+#: 4 (a)'s batch 4 (prompt 128, 32 tokens).
+DECODE_SHAPES = (("olmo-1b.decode", 128, 1153, 1088),
+                 ("batch 4", 4, 161, 144))
+
+
+def _decode_case(torch, label, B, S, pos) -> dict:
+    """OLMo-1B's decode attention (16 KV heads of 128, g 1) at one shape:
+    the two kernels, their plain versions and, as the yardstick, the
+    parent's einsum path (``attention._scores_pv``, softmax included)
+    against the kernels' chain (``attention._decode``), device ms from
+    CUDA-graph replays.  A product's bound: the bytes it must move at
+    3.35 TB/s (the keys or values and the probabilities on [lo, hi), the
+    query, the scores or the output written)."""
+    from repro_torch.configs import load_config
+    from repro_torch.kernels import decode_attn as D
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    from repro_torch.obs import card
+
+    cfg = load_config("olmo-1b", "full")
+    Hkv, g, Dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
+    gen = torch.Generator(device="cuda").manual_seed(B)
+    q = torch.randn(B, 1, Hkv, g, Dh, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(B, S, Hkv, Dh, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(B, S, Hkv, Dh, device="cuda", generator=gen).bfloat16()
+    lo, hi, scale = 0, pos + 1, Dh ** -0.5
+    scores = D.decode_scores_cuda(q, k, lo, hi, scale)
+    p = ops.softmax(scores).bfloat16()
+    pv = D.decode_pv_cuda(p, v, lo, hi)
+    # Against fp64 on the kept slots: the scores' error, and the PV
+    # product's in bf16 ulps of the fp64 sum rounded once to bf16.
+    s64 = torch.einsum("bthgd,bshd->bhgts", q.double(),
+                       k[:, lo:hi].double()) * scale
+    pv64 = torch.einsum("bhgts,bshd->bthgd", p[..., lo:hi].double(),
+                        v[:, lo:hi].double()).bfloat16()
+    err = dict(
+        scores=float((scores[..., lo:hi] - s64).abs().max()),
+        scores_plain=float((D.decode_scores_plain(q, k, lo, hi, scale)[
+            ..., lo:hi] - s64).abs().max()),
+        pv_ulp=_bf16_ulp_err(pv, pv64),
+        pv_plain_ulp=_bf16_ulp_err(D.decode_pv_plain(p, v, lo, hi), pv64))
+    # 1 bf16 ulp, or 1e-6 where the sum nearly cancels
+    pv_ok = bool(((pv.float() - pv64.float()).abs()
+                  <= 2 ** -7 * pv64.float().abs() + 1e-6).all())
+    del s64, pv64
+    if err["scores"] > 1e-5 or not pv_ok or not (p[..., hi:] == 0).all():
+        _fail(f"decode ({label}): errors against fp64 {err}, or a masked "
+              "probability not 0")
+    slots = B * (hi - lo) * Hkv
+    bytes_s = slots * Dh * 2 + q.numel() * 2 + scores.numel() * 4
+    bytes_pv = slots * g * 2 + slots * Dh * 2 + pv.numel() * 2
+    ms = dict(
+        scores=_device_ms(lambda: D.decode_scores_cuda(q, k, lo, hi, scale)),
+        pv=_device_ms(lambda: D.decode_pv_cuda(p, v, lo, hi)),
+        scores_plain=_device_ms(
+            lambda: D.decode_scores_plain(q, k, lo, hi, scale)),
+        pv_plain=_device_ms(lambda: D.decode_pv_plain(p, v, lo, hi)),
+        chain=_device_ms(lambda: A._decode(cfg, q, k, v, pos, torch.bfloat16,
+                                           card.OFF)),
+        yardstick=_device_ms(lambda: A._scores_pv(cfg, q, k, v, pos, True,
+                                                  torch.bfloat16)))
+    bound = dict(scores=bytes_s / HBM_BYTES_PER_S * 1e3,
+                 pv=bytes_pv / HBM_BYTES_PER_S * 1e3)
+    row = dict(shape=label, batch=B, slots=S, position=pos, kv_heads=Hkv,
+               group=g, head=Dh, splits=D.splits(B * Hkv, S, Dh),
+               errors_against_fp64=err, ms=ms,
+               bound_ms=bound, bound_by="bytes",
+               roofline_pct={n: 100 * bound[n] / ms[n] for n in bound},
+               call_ms=dict(scores=_call_ms(
+                   lambda: D.decode_scores_cuda(q, k, lo, hi, scale)),
+                   pv=_call_ms(lambda: D.decode_pv_cuda(p, v, lo, hi))))
+    print("decode_attn:", json.dumps(row))
+    return row
+
+
+def decode_phase(torch, smi) -> dict:
+    """Phase 14.  Returns the kernels' launches in (b)'s decode steps."""
+    import numpy as np
+
+    from repro_torch.configs import load_config
+    from repro_torch.kernels import decode_attn as D
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    t0 = time.perf_counter()
+    rows = [_decode_case(torch, *shape) for shape in DECODE_SHAPES]
+    _free(torch)
+    # (b) the launches: OLMo-1B at full width served as phase 4 (a), 8
+    # tokens: each kernel once a layer in each of the 7 decode steps, none
+    # in the prefill.
+    cfg = load_config("olmo-1b", "full")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    engine = ServeEngine(cfg, params, max_len=161, batch=4, device="cuda")
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 128))
+    engine.generate(prompts, 2)
+    s0, p0 = D.decode_scores_cuda.launches, D.decode_pv_cuda.launches
+    engine.generate(prompts, 8)
+    launches = dict(decode_scores=D.decode_scores_cuda.launches - s0,
+                    decode_pv=D.decode_pv_cuda.launches - p0)
+    want = cfg.n_layers * 7
+    if launches != dict(decode_scores=want, decode_pv=want):
+        _fail(f"decode (b): launches {launches}, expected {want} each "
+              f"({cfg.n_layers} layers x 7 decode steps)")
+    del engine, params
+    _free(torch)
+    out = dict(card=smi, shapes=rows, launches_per_decode_step={
+        k: v / 7 for k, v in launches.items()})
+    (ROOT / "chiprun_out" / "decode_attn.json").write_text(
+        json.dumps(out, indent=1))
+    print("decode_attn launches:", json.dumps(out["launches_per_decode_step"]))
+    print(f"decode: phase wall time {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _compact(entries) -> list:
     """Each kernel's headline numbers and launches in every phase, in a
     line of a few kilobytes (the full entries go to ``kernels.json``)."""
@@ -3392,14 +3547,14 @@ def _compact(entries) -> list:
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port "
-                                 "on one NVIDIA GPU (phases 1 to 13).")
-    ap.add_argument("--phase", type=int, choices=(6, 11, 12, 13),
+                                 "on one NVIDIA GPU (phases 1 to 14).")
+    ap.add_argument("--phase", type=int, choices=(6, 11, 12, 13, 14),
                     help="build the kernels, then run only phase 6 "
                          "(training), 11 (the serving simulator, "
                          "resilience, remat='dots' and compression), 12 "
-                         "(the sharding rule table on DTensor) or 13 (the "
-                         "sharded path of the MoE and SSM families); no "
-                         "result line is printed")
+                         "(the sharding rule table on DTensor), 13 (the "
+                         "sharded path of the MoE and SSM families) or 14 "
+                         "(decode attention); no result line is printed")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3434,7 +3589,8 @@ def _drive(args, torch, out: Path) -> int:
         t_build = _build.build_all()
         print(f"kernels built in {t_build:.1f} s into {_build.BUILD_DIR}")
         run = {6: train_phase, 11: sim_resilience_phase,
-               12: sharding_phase, 13: placed_phase}[args.phase]
+               12: sharding_phase, 13: placed_phase,
+               14: decode_phase}[args.phase]
         print(f"phase {args.phase} alone: launches",
               json.dumps(run(torch, smi)))
         return 0
@@ -3461,6 +3617,7 @@ def _drive(args, torch, out: Path) -> int:
     remat_dots = sim_resilience_phase(torch, smi)
     sharded = sharding_phase(torch, smi)
     placed = placed_phase(torch, smi)
+    decode_phase(torch, smi)
     for e in entries:
         if e["name"] in ("softmax", "exp", "uniform"):
             e["launches_remat_dots"] = remat_dots[e["name"]]

@@ -32,8 +32,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: ctypes argument types: pointers and the stream are ``c_void_p`` (a
 #: ``c_int`` would cut a 64-bit address), sizes ``c_int64``, seeds
-#: ``c_uint32`` (seeds reach 2**32 - 1, beyond a ``c_int``).
+#: ``c_uint32`` (seeds reach 2**32 - 1, beyond a ``c_int``), fp32 scalars
+#: ``c_float``.
 PTR, I64, U32, INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32, ctypes.c_int
+F32 = ctypes.c_float
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}

@@ -37,6 +37,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import decode_attn as _decode
 from repro_torch.kernels import expf as _exp
 from repro_torch.kernels import logf as _log
 from repro_torch.kernels import montecarlo as _mc
@@ -200,6 +201,27 @@ def softmax(x: torch.Tensor, axis: int = -1, impl: str | None = None,
         return _softmax.SoftmaxFn.apply(x, False)
     rows = _resolve_rows("softmax", block_rows, _softmax.DEFAULT_BLOCK_ROWS)
     return _softmax.SoftmaxFn.apply(x, True, rows)
+
+
+def decode_scores(q: torch.Tensor, k_cache: torch.Tensor, lo: int, hi: int,
+                  scale: float, impl: str | None = None) -> torch.Tensor:
+    """Decode attention's score product over a KV cache, in place: ``q``
+    (B, 1, Hkv, g, Dh) against ``k_cache`` (B, S, Hkv, Dh); fp32 scores
+    (B, Hkv, g, 1, S), ``scale`` times the dot product on the slots
+    [lo, hi) that the mask keeps, ``decode_attn.NEG_INF`` on the others."""
+    if not _use_kernel(impl, q.device):
+        return _decode.decode_scores_plain(q, k_cache, lo, hi, scale)
+    return _decode.decode_scores_cuda(q, k_cache, lo, hi, scale)
+
+
+def decode_pv(p: torch.Tensor, v_cache: torch.Tensor, lo: int, hi: int,
+              impl: str | None = None) -> torch.Tensor:
+    """Decode attention's PV product over a KV cache, in place: the
+    probabilities ``p`` (B, Hkv, g, 1, S), 0 outside [lo, hi), times
+    ``v_cache`` (B, S, Hkv, Dh); (B, 1, Hkv, g, Dh) in ``p``'s dtype."""
+    if not _use_kernel(impl, p.device):
+        return _decode.decode_pv_plain(p, v_cache, lo, hi)
+    return _decode.decode_pv_cuda(p, v_cache, lo, hi)
 
 
 def uniform(seed: int, shape: tuple[int, ...], kind: str = "xoshiro128p",

@@ -2,7 +2,11 @@
 sliding-window masks, KV-cache decode.  The softmax of a materialised score
 matrix goes through the COPIFT softmax kernel and the exp of the chunked
 (online-softmax) path through the COPIFT exp kernel
-(``repro_torch.kernels.ops``) when ``cfg.use_copift_softmax`` is set.
+(``repro_torch.kernels.ops``) when ``cfg.use_copift_softmax`` is set.  A
+decode step (one query a row over a KV cache, plain tensors) runs its two
+products through the decode-attention kernels (``ops.decode_scores``,
+``ops.decode_pv``), which read the cache in place at the slots the mask
+keeps.
 
 Layout as in the JAX package: q (B, T, H, Dh); kv (B, S, Hkv, Dh); GQA
 repeats kv groups at use.  On DTensors (the sharded step) the two products
@@ -15,18 +19,16 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.decode_attn import NEG_INF
 from repro_torch.models import layers as L
 from repro_torch.obs import card
 from repro_torch.parallel import autoshard
-
-NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 
 
 class Attention(nn.Module):
@@ -302,6 +304,9 @@ def _attention(p: Attention, cfg: ModelConfig, x, positions, kv_cache,
             valid = None if kv_cache is None else q_offset + T
             out = sp.output(_chunked_attention(cfg, qg, k, v, q_offset,
                                                valid).to(dt))
+        elif T == 1 and kv_cache is not None and not (
+                isinstance(qg, DTensor) or isinstance(k, DTensor)):
+            out = sp.output(_decode(cfg, qg, k, v, q_offset, dt, sp))
         else:
             out = sp.output(_scores_pv(cfg, qg, k, v, q_offset,
                                        kv_cache is not None, dt))
@@ -331,6 +336,20 @@ def _scores_pv(cfg: ModelConfig, qg, k, v, q_offset: int, cached: bool, dt):
     w = _softmax(cfg, scores).to(dt)
     return _einsum(heads, "bhgts,bshd->bthgd", w, _Heads.PROBS, v.to(dt),
                    _Heads.KV, _Heads.QG)
+
+
+def _decode(cfg: ModelConfig, qg, k, v, pos: int, dt, sp):
+    """One query a row at cache position ``pos``: the two products read the
+    cache in place, only at the slots [lo, hi) that the causal and
+    sliding-window mask keeps, with the softmax between.  (B, 1, Hkv, g,
+    Dh) in ``dt``."""
+    lo = max(0, pos - cfg.sliding_window + 1) if cfg.sliding_window else 0
+    hi = pos + 1
+    sp.count(decode_kernel=1, cache_slots=qg.shape[0] * (hi - lo))
+    scores = kops.decode_scores(qg.contiguous(), k, lo, hi,
+                                qg.shape[-1] ** -0.5, impl=cfg.softmax_impl)
+    w = _softmax(cfg, scores).to(dt)
+    return kops.decode_pv(w, v, lo, hi, impl=cfg.softmax_impl)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,

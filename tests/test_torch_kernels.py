@@ -302,7 +302,8 @@ class TestDispatch:
 
     def test_build_names_library_by_source_hash(self):
         sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-        assert sources == ["expf", "logf", "montecarlo", "prng", "softmax"]
+        assert sources == ["decode_attn", "expf", "logf", "montecarlo",
+                           "prng", "softmax"]
         path = _build.library_path("softmax")
         assert path.parent == _build.BUILD_DIR
         assert path.name == f"softmax-{_build._digest()}.so"
