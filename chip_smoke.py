@@ -7,6 +7,7 @@
   python3 chip_smoke.py --phase 12    # build, then phase 12 alone
   python3 chip_smoke.py --phase 13    # build, then phase 13 alone
   python3 chip_smoke.py --phase 14    # build, then phase 14 alone
+  python3 chip_smoke.py --phase 15    # build, then phase 15 alone
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line).  Every line printed also goes to
@@ -62,7 +63,10 @@ and prints no result line).  Every line printed also goes to
    (c) ``ServeEngine(max_len=5120, batch=1)``, prompt 2048, 8 new tokens
        (prefill takes the chunked attention path, the exp kernel's).
    Every kernel's launch counter is set to 0 just before each request and
-   read just after; softmax must launch in (a), uniform in (b), exp in (c).
+   read just after; softmax must launch in (a), uniform's rows launcher (the
+   sampler's, one launch a step) in (b), exp in (c).  The counters count
+   the wrappers' calls: the engine replays its decode step as a CUDA graph,
+   whose capture calls the wrappers once and whose replays call none.
    The per-path counters must show (a) and (b) on softmax's warp path,
    (c)'s decode on its cluster path and (c)'s prefill on exp's vector path.
    Every logit must be finite and every token inside the vocabulary.
@@ -71,7 +75,8 @@ and prints no result line).  Every line printed also goes to
    size (Monte Carlo at 2**26 samples, n_blocks 8 and 1024), held against
    ``.ref`` or the plain version; the estimates within 0.002 of pi and 0.4.
    The counters are set to 0 before the phase and read after it: every
-   kernel must have launched, logf on its vector path, Monte Carlo on its
+   kernel must have launched (uniform's rows launcher, the serving
+   sampler's, has no spec), logf on its vector path, Monte Carlo on its
    segment path at n_blocks 8 and its lane path at 1024.  The logf and
    Monte-Carlo launch counts (and counts by path) in the JSON line are this
    phase's, the others the serving phase's.
@@ -114,10 +119,13 @@ and prints no result line).  Every line printed also goes to
    (i) one full-width Jamba period (8 of its 32 layers, as one card holds
        it): ``ServeEngine(max_len=8192, batch=1)``, prompt 7168, 8 greedy
        tokens: exactly 50 exp launches on the vector path (25 query-block
-       x KV-chunk pairs: the 4096 window skips 3 of the causal 28) and 7
-       decode softmaxes on the cluster path (32 x 8192);
-   (j) RWKV-6 1.6B at full width through ``launch.serve.main``, sampled:
-       uniform once a slot and token, no softmax, no exp;
+       x KV-chunk pairs: the 4096 window skips 3 of the causal 28) and
+       softmax on the cluster path (32 x 8192) only; the request traced,
+       on the device 7 decode softmaxes and 7 of each decode kernel, the
+       graph's replays included;
+   (j) RWKV-6 1.6B at full width through ``launch.serve.main``, sampled,
+       traced: uniform's rows kernel once a token (a row a slot) on the
+       device, no other kernel;
    (k) HuBERT-XLarge at full width trains 3 steps through
        ``launch.train.main`` (batch 4 x seq 2048, remat full): uniform 3 a
        step, one of them the 10,485,760 frame-embedding values; softmax 96
@@ -258,7 +266,8 @@ and prints no result line).  Every line printed also goes to
         ``attention._scores_pv``, not the decode kernels), then the same
         loop through ``_step_and_specs``' decode placement (parameters and
         cache placed by the rule table, the engine's sampler on the
-        gathered logits): identical tokens, the same launches, softmax on
+        gathered logits; the unsharded engine's steps eager, as the
+        placements' are): identical tokens, the same launches, softmax on
         its warp path only and every softmax call on the DTensor route
         (``kernels._build.on_local`` given a DTensor);
     (b) DeepSeekMoE-16B at full width cut to 2 layers (dense, then MoE),
@@ -268,8 +277,8 @@ and prints no result line).  Every line printed also goes to
         twice a step: forward and recompute), softmax 3 and uniform 2
         launches a step; ms a step and peak memory of both;
     (c) RWKV-6 1.6B at full width and depth, batch 4, prompt 128, 8 tokens
-        sampled at temperature 1, as (a): identical tokens, uniform once a
-        slot and token;
+        sampled at temperature 1, as (a): identical tokens, uniform's rows
+        launcher once a token;
     (d) then, the NCCL group destroyed, ``DRYRUN_HOST_CELLS`` of the
         dry-run in its fake world on the card's host, each record printed
         with its wall time and torch version (deepseek-moe-16b x train_4k
@@ -298,18 +307,32 @@ and prints no result line).  Every line printed also goes to
 14. Decode attention (``decode_phase``), OLMo-1B's 16 KV heads of 128:
     (a) at olmo-1b.decode's shape (batch 128, 1,153 cache slots, position
         1,088) and at batch 4 (161 slots, position 144), ``decode_scores``
-        and ``decode_pv`` against fp64 on the kept slots (scores within
-        1e-5, the PV product within 1 bf16 ulp, or 1e-6, of the fp64 sum
-        rounded to bf16; the plain versions' errors printed beside), the
-        softmax exactly 0 past the position, each timed (device ms from
+        and ``decode_pv`` at the position held on the card against fp64
+        on the kept slots (scores within 1e-5, the PV product within 1
+        bf16 ulp, or 1e-6, of the fp64 sum rounded to bf16; the plain
+        versions' errors printed beside) and against the plain versions
+        (the masked scores equal, the kept within 1e-5), the softmax
+        exactly 0 past the position, each timed (device ms from
         CUDA-graph replays, and the eager call) beside its plain version
         and its bound, the bytes it must move at 3.35 TB/s; the kernels'
         chain (``attention._decode``) beside the einsum path it replaces
         (``attention._scores_pv``), softmax included in both;
     (b) OLMo-1B at full width served as phase 4 (a), 8 tokens: each kernel
-        launches once a layer and decode step, never in the prefill.
+        launches once a layer and decode step on the device (the request
+        traced, the graph's replays included), never in the prefill.
     The numbers also go to ``chiprun_out/decode_attn.json``.
-15. The last line: ``{"ok": true, "device": {...}}``.
+15. The decode step's CUDA graph (``graph_phase``): OLMo-1B at full width
+    at olmo-1b.decode's shape (batch 128, prompt 1,024, 1,153 slots,
+    sampled at 0.8), one replay of ``ServeEngine``'s captured step against
+    one eager step, each as device ms a step (CUDA events around 20 steps)
+    and host ms a step (issuing them), in turns, twice; one call of 128
+    tokens each way (ms a decode step, host clock), identical tokens; the
+    kernels a replay launches, read from a traced replay; and the
+    sampler's rows kernel at the cell's (128, 50,304) on the seeds of a
+    call, bit for bit against ``uniform_rows_plain``, timed beside it and
+    its bound (the bytes it writes and reads at 3.35 TB/s).  The numbers
+    also go to ``chiprun_out/decode_graph.json``.
+16. The last line: ``{"ok": true, "device": {...}}``.
 
 Phase 2 also times an empty kernel at the uniform kernel's grids
 (``tools/launch_floor.py``, built beside the kernels): the card's floor
@@ -978,9 +1001,15 @@ def check_reference(torch, arch: str = "olmo-1b") -> None:
 # ---------------------------------------------------------------------------
 
 def _counters():
+    """The kernels' launch counters by name: "uniform_rows" is the uniform
+    kernel's rows launcher, the serving sampler's (one launch a step for
+    every slot).  They count the wrappers' calls: a CUDA graph's capture
+    counts once, its replays not at all (``_device_launches`` counts them
+    on the device)."""
     from repro_torch.kernels import expf, logf, montecarlo, prng, softmax
     return {"softmax": softmax.softmax_cuda, "exp": expf.exp_cuda,
-            "uniform": prng.uniform_cuda, "logf": logf.log_cuda,
+            "uniform": prng.uniform_cuda,
+            "uniform_rows": prng.uniform_rows_cuda, "logf": logf.log_cuda,
             "montecarlo": montecarlo.mc_partial_sums_cuda}
 
 
@@ -1008,12 +1037,42 @@ def _tiling_launches(counters) -> dict:
             if hasattr(c, "tiling_launches")}
 
 
-def _request(label, fn, vocab):
-    """Run one request with every launch counter at 0; check its output."""
+#: The kernels of ``csrc/`` by the names a device trace gives them.
+KERNELS = ("softmax_warp_kernel", "softmax_cluster_kernel", "softmax_kernel",
+           "exp_kernel", "exp_vec_kernel", "log_kernel", "log_vec_kernel",
+           "uniform_kernel", "uniform_rows_kernel", "mc_kernel",
+           "mc_segment_kernel", "decode_scores_kernel", "decode_pv_kernel")
+
+
+def _device_launches(launches_by_name) -> dict:
+    """{kernel: launches} of each of ``KERNELS`` in a device trace's
+    launches by kernel name (``_profiled``), a CUDA graph's replays
+    included.  A name matches by the function it names, so that PyTorch's
+    kernels, whose template arguments may name a ``uniform_kernel`` of
+    their own, do not."""
+    import re
+    own = re.compile(r"^(?:void )?(?:\(anonymous namespace\)::)?(\w+)[<(]")
+    out = dict.fromkeys(KERNELS, 0)
+    for name, n in launches_by_name.items():
+        m = own.match(name)
+        if m and m.group(1) in out:
+            out[m.group(1)] += n
+    return out
+
+
+def _request(label, fn, vocab, traced: bool = False):
+    """Run one request with every launch counter at 0; check its output.
+    ``traced``: under torch.profiler, its kernels' launches on the device
+    in the row as ``device_launches`` (its times then include the
+    profiler's cost)."""
     import torch
     counters = _reset_counters()
     t0 = time.perf_counter()
-    res = fn()
+    if traced:
+        slug = "".join(c if c.isalnum() else "_" for c in label)[:40]
+        res, *_, by_launches = _profiled(torch, fn, f"request_{slug}")
+    else:
+        res = fn()
     wall = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
     paths = _path_launches(counters)
@@ -1030,6 +1089,8 @@ def _request(label, fn, vocab):
                tokens_per_s=B * n / (res.prefill_s + res.decode_s),
                wall_s_with_init=wall, launches=launches,
                path_launches=paths)
+    if traced:
+        row["device_launches"] = _device_launches(by_launches)
     print("serve:", json.dumps(row))
     return res, row
 
@@ -1038,7 +1099,8 @@ def _profiled(torch, fn, label: str) -> dict:
     """Run ``fn`` once under torch.profiler and read its device activity
     from the exported trace (``build/chip_smoke_trace_<label>.json``):
     (result, host-clock ms under the profiler ending in a synchronisation,
-    device-busy ms, device operations, device ms by kernel name)."""
+    device-busy ms, device operations, device ms by kernel name, launches
+    by kernel name), a CUDA graph's kernels each on its own."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
@@ -1055,10 +1117,12 @@ def _profiled(torch, fn, label: str) -> dict:
     events = json.loads(trace.read_text())["traceEvents"]
     dev = [e for e in events
            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    by_name = Counter()
+    by_name, launches = Counter(), Counter()
     for e in dev:
         by_name[e["name"][:80]] += e["dur"] / 1e3
-    return res, wall_ms, sum(by_name.values()), len(dev), by_name
+        if e.get("cat") == "kernel":
+            launches[e["name"]] += 1
+    return res, wall_ms, sum(by_name.values()), len(dev), by_name, launches
 
 
 def profile_serving(torch, engine, prompts, n_steps: int,
@@ -1069,7 +1133,7 @@ def profile_serving(torch, engine, prompts, n_steps: int,
     measurement only: it checks nothing, and the profiler's own cost
     inflates the wall time."""
     engine.generate(prompts, 2)                      # warm-up
-    res, _, busy_ms, n_ops, by_name = _profiled(
+    res, _, busy_ms, n_ops, by_name, _ = _profiled(
         torch, lambda: engine.generate(prompts, n_steps), label)
     wall_ms = (res.prefill_s + res.decode_s) * 1e3
     print("profile:", json.dumps(dict(
@@ -1150,7 +1214,7 @@ def serve_full(torch) -> tuple[dict, dict, dict]:
         for k, by_path in r["path_launches"].items():
             for path, v in by_path.items():
                 paths[k][path] += v
-    need = {"softmax": rows[0], "uniform": rows[2], "exp": rows[3]}
+    need = {"softmax": rows[0], "uniform_rows": rows[2], "exp": rows[3]}
     for k, r in need.items():
         if r["launches"][k] <= 0:
             _fail(f"the {k} kernel was not launched in request {r['request']}")
@@ -1286,7 +1350,8 @@ def check_facade(torch, gen) -> dict:
     print("facade:", json.dumps(dict(max_abs_err=errs, launches=launches,
                                      path_launches=paths)))
     for k, n in launches.items():
-        if n <= 0:
+        # the rows launcher is the serving sampler's: no spec runs it
+        if n <= 0 and k != "uniform_rows":
             _fail(f"facade: the {k} kernel was not launched")
     return launches, paths
 
@@ -1467,7 +1532,7 @@ def train_against_plain(torch, smi) -> None:
         got[impl] = {k: float(m[k]) for k in ("loss", "grad_norm")}
     # Where a step's time goes: one more step with the kernels, profiled.
     fn = make_train_step(cfg, opt)
-    _, wall_ms, busy_ms, n_ops, by_name = _profiled(
+    _, wall_ms, busy_ms, n_ops, by_name, _ = _profiled(
         torch, lambda: fn(state, batch), "train")
     print("profile:", json.dumps(dict(
         step="OLMo-1B full width, batch 4 x seq 2048, remat full",
@@ -1631,9 +1696,11 @@ def family_deepseek(torch, smi) -> list:
         _only_path(r["request"], r["path_launches"]["softmax"], "warp")
         if r["launches"]["exp"]:
             _fail(f"{r['request']}: exp launched")
-        if (r["launches"]["uniform"] > 0) != (r is rows[2]):
+        if r["launches"]["uniform"] or \
+                (r["launches"]["uniform_rows"] > 0) != (r is rows[2]):
             _fail(f"{r['request']}: uniform launched "
-                  f"{r['launches']['uniform']} times")
+                  f"{r['launches']['uniform']} times, its rows launcher "
+                  f"{r['launches']['uniform_rows']}")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     profile_serving(torch, ServeEngine(cfg, params, max_len=161, batch=4,
@@ -1673,13 +1740,23 @@ def family_jamba(torch, smi) -> list:
     prompt = np.random.default_rng(0).integers(0, V, (1, 7168)).astype(
         np.int32)
     res, row = _request("i: jamba one period, prompt 7168, max_len 8192",
-                        lambda: engine.generate(prompt, 8), V)
+                        lambda: engine.generate(prompt, 8), V, traced=True)
     # Query blocks 0..6 of 1024 against KV chunks of 1024: causal alone
     # gives 1+2+...+7 = 28 block pairs; the 4096 window starts blocks 5 and
     # 6 at chunks 1 and 2, so 25 pairs run, two exps each.
     _only_path("(i) prefill", row["path_launches"]["exp"], "vector", 50)
-    _only_path("(i) decode", row["path_launches"]["softmax"], "cluster", 7)
-    if row["launches"]["uniform"]:
+    # The decode steps' softmax: the wrapper's calls (the warm-up step and
+    # the capture) on the cluster path; on the device, once in each of the
+    # 7 steps, the replays included, as the decode kernels.
+    _only_path("(i) decode", row["path_launches"]["softmax"], "cluster")
+    dev = row["device_launches"]
+    want = dict(softmax_cluster_kernel=7, softmax_warp_kernel=0,
+                softmax_kernel=0, decode_scores_kernel=7, decode_pv_kernel=7,
+                exp_vec_kernel=50, exp_kernel=0)
+    if {k: dev[k] for k in want} != want:
+        _fail(f"(i): device launches {dev}, expected {want}")
+    if row["launches"]["uniform"] or row["launches"]["uniform_rows"] or \
+            dev["uniform_kernel"] or dev["uniform_rows_kernel"]:
         _fail("(i): uniform launched in a greedy request")
     bound_ms = _weight_bytes(cfg) / HBM_BYTES_PER_S * 1e3
     print("families:", json.dumps(dict(
@@ -1705,11 +1782,15 @@ def family_rwkv(torch, smi) -> list:
             "--prompt-len", "128", "--gen", "32", "--temperature", "1.0",
             "--seed", "3", "--device", "cuda"]
     _, row = _request("j: rwkv6 temperature 1.0, seed 3",
-                      lambda: serve.main(argv), cfg.vocab_size)
-    if row["launches"]["uniform"] != 4 * 32:
-        _fail(f"(j): uniform launched {row['launches']['uniform']} times, "
-              "not once a slot and token")
-    if row["launches"]["softmax"] or row["launches"]["exp"]:
+                      lambda: serve.main(argv), cfg.vocab_size, traced=True)
+    dev = row["device_launches"]
+    if dev["uniform_rows_kernel"] != 32 or dev["uniform_kernel"] or \
+            row["launches"]["uniform"] or row["launches"]["uniform_rows"] < 1:
+        _fail(f"(j): uniform's rows kernel launched "
+              f"{dev['uniform_rows_kernel']} times on the device, uniform's "
+              f"{dev['uniform_kernel']}: not once a token (a row a slot)")
+    if row["launches"]["softmax"] or row["launches"]["exp"] or \
+            any(dev[k] for k in KERNELS if k != "uniform_rows_kernel"):
         _fail(f"(j): attention kernels launched in an attention-free "
               f"model: {row['launches']}")
     print("families:", json.dumps(dict(
@@ -2169,10 +2250,10 @@ def tune_serve(torch, smi, state) -> tuple[dict, dict]:
                    "warp")
         if set(tuned["softmax"]) != {8}:
             _fail(f"tune (c) {mode}: softmax rows a block {tuned['softmax']}")
-        if mode == "sampled" and (set(tuned["uniform"]) != {128}
-                                  or set(untuned["uniform"]) != {256}):
-            _fail(f"tune (c): uniform threads {tuned['uniform']} tuned, "
-                  f"{untuned['uniform']} untuned")
+        if mode == "sampled" and (set(tuned["uniform_rows"]) != {128}
+                                  or set(untuned["uniform_rows"]) != {256}):
+            _fail(f"tune (c): uniform threads {tuned['uniform_rows']} "
+                  f"tuned, {untuned['uniform_rows']} untuned")
         for k, v in row_t["launches"].items():
             launches[k] += v
         for k, by in tuned.items():
@@ -2453,8 +2534,8 @@ def system_serve(torch, smi, state, tmp: Path) -> tuple[dict, dict]:
         if set(tiled["softmax"]) != {8}:
             _fail(f"system (c) {mode}: softmax rows a block "
                   f"{tiled['softmax']}")
-        if mode == "sampled" and set(tiled["uniform"]) != {128}:
-            _fail(f"system (c): uniform threads {tiled['uniform']}")
+        if mode == "sampled" and set(tiled["uniform_rows"]) != {128}:
+            _fail(f"system (c): uniform threads {tiled['uniform_rows']}")
         for k, v in row["launches"].items():
             launches[k] += v
         for k, by in tiled.items():
@@ -3085,7 +3166,7 @@ def _placed_generate(torch, cfg, params, prompts, n_steps: int,
     from repro_torch.launch import dryrun
     from repro_torch.models.transformer import init_stack_cache
     from repro_torch.parallel.sharding import ShardingRules, distribute
-    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.engine import ServeEngine, _step_seeds
 
     B, plen = prompts.shape
     max_len = plen + n_steps
@@ -3094,7 +3175,9 @@ def _placed_generate(torch, cfg, params, prompts, n_steps: int,
     fn, _, place = dryrun._step_and_specs(cfg, shape, rules, mesh)
     sampler = ServeEngine(cfg, None, max_len, B, temperature, seed,
                           device="cuda")
-    seeds = sampler._slot_seeds(prompts)
+    seeds = torch.from_numpy(_step_seeds(sampler._slot_seeds(prompts),
+                                         n_steps).view(np.int32)).cuda()
+    step = torch.zeros(1, dtype=torch.int64, device="cuda")
     toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
     params, cache, _, _ = place((params, init_stack_cache(
         cfg, B, max_len, "cuda"), toks[:, :1], 0))
@@ -3105,7 +3188,8 @@ def _placed_generate(torch, cfg, params, prompts, n_steps: int,
     t1 = time.perf_counter()
     out = [toks]
     for i in range(n_steps):
-        tok = sampler._sample(logits.full_tensor(), i, seeds)[:, None]
+        step.fill_(i)
+        tok = sampler._sample(logits.full_tensor(), step, seeds)[:, None]
         out.append(tok)
         if i + 1 < n_steps:
             logits, cache = fn(params, cache, distribute(tok, spec, mesh),
@@ -3132,7 +3216,8 @@ def _einsum_decode():
 def _serve_both(torch, smi, label, cfg, prompts, n_steps, temperature,
                 seed, mesh):
     """``cfg`` at full width served unsharded through ``ServeEngine`` (its
-    decode attention on the einsum path, ``_einsum_decode``) and then
+    decode attention on the einsum path, ``_einsum_decode``, its steps
+    eager) and then
     through the rule table's placements on ``mesh`` (the same parameters,
     placed in place): the tokens must be identical.  Returns
     (unsharded launches and paths, sharded launches, paths and DTensor
@@ -3147,6 +3232,9 @@ def _serve_both(torch, smi, label, cfg, prompts, n_steps, temperature,
                          "cuda")
     engine = ServeEngine(cfg, params, plen + n_steps, B, temperature, seed,
                          device="cuda")
+    # every step eager, as the placements' are, so that the wrappers count
+    # the launches of every step on both sides (the graph: phase 15)
+    engine._graphable = lambda: False
     with _einsum_decode():
         res, plain, plain_paths, _ = _main_path_run(
             torch, lambda: engine.generate(prompts, n_steps))
@@ -3193,7 +3281,8 @@ def placed_serve_moe(torch, smi, mesh) -> dict:
     if route["softmax"] != launches["softmax"]:
         _fail(f"(a): {launches['softmax']} softmax launches, "
               f"{route['softmax']} of them through the DTensor route")
-    if launches != plain or launches["exp"] or launches["uniform"]:
+    if launches != plain or launches["exp"] or launches["uniform"] or \
+            launches["uniform_rows"]:
         _fail(f"(a): launches {launches} sharded, {plain} unsharded")
     print("placed (a):", json.dumps(row))
     return launches
@@ -3213,10 +3302,10 @@ def placed_serve_rwkv(torch, smi, mesh) -> dict:
              "through the rule table's placements")
     plain, launches, _, _, row = _serve_both(
         torch, smi, label, cfg, prompts, 8, 1.0, 3, mesh)
-    if launches != plain or launches["uniform"] != 4 * 8 or \
-            launches["softmax"] or launches["exp"]:
+    if launches != plain or launches["uniform_rows"] != 8 or \
+            launches["uniform"] or launches["softmax"] or launches["exp"]:
         _fail(f"(c): launches {launches} sharded, {plain} unsharded; "
-              "uniform once a slot and token, no attention kernel")
+              "uniform's rows launcher once a token, no attention kernel")
     print("placed (c):", json.dumps(row))
     return launches
 
@@ -3254,7 +3343,7 @@ def placed_serve_jamba(torch, smi, mesh) -> dict:
         _fail(f"(e): ssm._halves ran {len(calls)} times on {set(calls)}, "
               f"not {n_mamba} a step on in_proj's columns over 'model'")
     if launches != plain or route["softmax"] != launches["softmax"] or \
-            launches["uniform"]:
+            launches["uniform"] or launches["uniform_rows"]:
         _fail(f"(e): launches {launches} sharded, {plain} unsharded, "
               f"DTensor route {dict(route)}")
     print("placed (e):", json.dumps(dict(
@@ -3444,38 +3533,48 @@ def _decode_case(torch, label, B, S, pos) -> dict:
     k = torch.randn(B, S, Hkv, Dh, device="cuda", generator=gen).bfloat16()
     v = torch.randn(B, S, Hkv, Dh, device="cuda", generator=gen).bfloat16()
     lo, hi, scale = 0, pos + 1, Dh ** -0.5
-    scores = D.decode_scores_cuda(q, k, lo, hi, scale)
+    at = torch.tensor(pos, device="cuda")        # read on the card
+    scores = D.decode_scores_cuda(q, k, at, 0, scale)
     p = ops.softmax(scores).bfloat16()
-    pv = D.decode_pv_cuda(p, v, lo, hi)
+    pv = D.decode_pv_cuda(p, v, at, 0)
     # Against fp64 on the kept slots: the scores' error, and the PV
     # product's in bf16 ulps of the fp64 sum rounded once to bf16.
     s64 = torch.einsum("bthgd,bshd->bhgts", q.double(),
                        k[:, lo:hi].double()) * scale
     pv64 = torch.einsum("bhgts,bshd->bthgd", p[..., lo:hi].double(),
                         v[:, lo:hi].double()).bfloat16()
+    s_plain = D.decode_scores_plain(q, k, lo, hi, scale)
+    pv_plain = D.decode_pv_plain(p, v, lo, hi)
     err = dict(
         scores=float((scores[..., lo:hi] - s64).abs().max()),
-        scores_plain=float((D.decode_scores_plain(q, k, lo, hi, scale)[
-            ..., lo:hi] - s64).abs().max()),
+        scores_plain=float((s_plain[..., lo:hi] - s64).abs().max()),
+        scores_vs_plain=float((scores[..., lo:hi]
+                               - s_plain[..., lo:hi]).abs().max()),
         pv_ulp=_bf16_ulp_err(pv, pv64),
-        pv_plain_ulp=_bf16_ulp_err(D.decode_pv_plain(p, v, lo, hi), pv64))
+        pv_plain_ulp=_bf16_ulp_err(pv_plain, pv64),
+        pv_vs_plain_ulp=_bf16_ulp_err(pv, pv_plain))
     # 1 bf16 ulp, or 1e-6 where the sum nearly cancels
     pv_ok = bool(((pv.float() - pv64.float()).abs()
                   <= 2 ** -7 * pv64.float().abs() + 1e-6).all())
-    del s64, pv64
-    if err["scores"] > 1e-5 or not pv_ok or not (p[..., hi:] == 0).all():
-        _fail(f"decode ({label}): errors against fp64 {err}, or a masked "
+    # the plain version masks the slots past the position twice: -inf
+    masked_ok = bool((scores[..., hi:] == D.NEG_INF).all()) and \
+        bool(torch.isinf(s_plain[..., hi:]).all())
+    del s64, pv64, s_plain, pv_plain
+    if err["scores"] > 1e-5 or err["scores_vs_plain"] > 1e-5 or \
+            not pv_ok or not masked_ok or not (p[..., hi:] == 0).all():
+        _fail(f"decode ({label}): errors against fp64 and the plain "
+              f"versions {err}, a masked score not masked, or a masked "
               "probability not 0")
     slots = B * (hi - lo) * Hkv
     bytes_s = slots * Dh * 2 + q.numel() * 2 + scores.numel() * 4
     bytes_pv = slots * g * 2 + slots * Dh * 2 + pv.numel() * 2
     ms = dict(
-        scores=_device_ms(lambda: D.decode_scores_cuda(q, k, lo, hi, scale)),
-        pv=_device_ms(lambda: D.decode_pv_cuda(p, v, lo, hi)),
+        scores=_device_ms(lambda: D.decode_scores_cuda(q, k, at, 0, scale)),
+        pv=_device_ms(lambda: D.decode_pv_cuda(p, v, at, 0)),
         scores_plain=_device_ms(
             lambda: D.decode_scores_plain(q, k, lo, hi, scale)),
         pv_plain=_device_ms(lambda: D.decode_pv_plain(p, v, lo, hi)),
-        chain=_device_ms(lambda: A._decode(cfg, q, k, v, pos, torch.bfloat16,
+        chain=_device_ms(lambda: A._decode(cfg, q, k, v, at, torch.bfloat16,
                                            card.OFF)),
         yardstick=_device_ms(lambda: A._scores_pv(cfg, q, k, v, pos, True,
                                                   torch.bfloat16)))
@@ -3487,8 +3586,8 @@ def _decode_case(torch, label, B, S, pos) -> dict:
                bound_ms=bound, bound_by="bytes",
                roofline_pct={n: 100 * bound[n] / ms[n] for n in bound},
                call_ms=dict(scores=_call_ms(
-                   lambda: D.decode_scores_cuda(q, k, lo, hi, scale)),
-                   pv=_call_ms(lambda: D.decode_pv_cuda(p, v, lo, hi))))
+                   lambda: D.decode_scores_cuda(q, k, at, 0, scale)),
+                   pv=_call_ms(lambda: D.decode_pv_cuda(p, v, at, 0))))
     print("decode_attn:", json.dumps(row))
     return row
 
@@ -3498,7 +3597,6 @@ def decode_phase(torch, smi) -> dict:
     import numpy as np
 
     from repro_torch.configs import load_config
-    from repro_torch.kernels import decode_attn as D
     from repro_torch.models.model import init_params
     from repro_torch.serve.engine import ServeEngine
 
@@ -3513,15 +3611,18 @@ def decode_phase(torch, smi) -> dict:
                          "cuda")
     engine = ServeEngine(cfg, params, max_len=161, batch=4, device="cuda")
     prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 128))
-    engine.generate(prompts, 2)
-    s0, p0 = D.decode_scores_cuda.launches, D.decode_pv_cuda.launches
-    engine.generate(prompts, 8)
-    launches = dict(decode_scores=D.decode_scores_cuda.launches - s0,
-                    decode_pv=D.decode_pv_cuda.launches - p0)
+    engine.generate(prompts, 2)                   # the capture
+    # on the device, the graph's replays included: a replay calls no
+    # wrapper
+    *_, by_launches = _profiled(torch, lambda: engine.generate(prompts, 8),
+                                "decode_b")
+    dev = _device_launches(by_launches)
+    launches = dict(decode_scores=dev["decode_scores_kernel"],
+                    decode_pv=dev["decode_pv_kernel"])
     want = cfg.n_layers * 7
     if launches != dict(decode_scores=want, decode_pv=want):
-        _fail(f"decode (b): launches {launches}, expected {want} each "
-              f"({cfg.n_layers} layers x 7 decode steps)")
+        _fail(f"decode (b): launches {launches} on the device, expected "
+              f"{want} each ({cfg.n_layers} layers x 7 decode steps)")
     del engine, params
     _free(torch)
     out = dict(card=smi, shapes=rows, launches_per_decode_step={
@@ -3530,6 +3631,130 @@ def decode_phase(torch, smi) -> dict:
         json.dumps(out, indent=1))
     print("decode_attn launches:", json.dumps(out["launches_per_decode_step"]))
     print(f"decode: phase wall time {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the decode step's CUDA graph against its eager step
+# ---------------------------------------------------------------------------
+
+#: olmo-1b.decode's calls: batch, prompt, new tokens, temperature
+GRAPH_CELL = (128, 1024, 128, 0.8)
+
+
+def _step_times(torch, st, step, steps: int, pos: int) -> dict:
+    """``steps`` decode steps from ``pos`` (the tokens and the cache as the
+    last call left them): host ms a step to issue them (the host clock
+    before the synchronisation) and device ms a step (CUDA events around
+    them)."""
+    st.pos.fill_(pos)
+    st.step.fill_(1)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        step()
+    host = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    return dict(host_ms=host / steps * 1e3,
+                device_ms=start.elapsed_time(end) / steps)
+
+
+def _rows_case(torch, prng, seeds, n: int) -> dict:
+    """The sampler's rows kernel on ``seeds`` (a row of the engine's seeds
+    table, on the card), ``n`` uniforms a row: bit for bit against
+    ``uniform_rows_plain``, timed (device ms from CUDA-graph replays, and
+    the eager call) beside the plain version and the bound, the bytes it
+    writes and the seeds it reads at 3.35 TB/s."""
+    got = prng.uniform_rows_cuda(seeds, n)
+    if not torch.equal(got, prng.uniform_rows_plain(seeds, n)):
+        _fail(f"graph: uniform_rows_cuda at ({seeds.numel()}, {n}) differs "
+              "from uniform_rows_plain")
+    del got
+    bound = (seeds.numel() * n * 4 + seeds.numel() * 4) / HBM_BYTES_PER_S
+    row = dict(shape=[seeds.numel(), n], bit_exact=True,
+               **_times(lambda: prng.uniform_rows_cuda(seeds, n),
+                        lambda: prng.uniform_rows_plain(seeds, n), None),
+               bound_ms=bound * 1e3, bound_by="bytes")
+    row["roofline_pct"] = 100 * row["bound_ms"] / row["ms"]
+    print("graph rows:", json.dumps(row))
+    return row
+
+
+def graph_phase(torch, smi) -> dict:
+    """Phase 15: OLMo-1B at full width at olmo-1b.decode's shape (batch
+    128, prompt 1,024, a 1,153-slot cache, sampled at 0.8): one replay of
+    the engine's captured decode step against one eager step, each as
+    device ms a step (CUDA events around 20 steps) and host ms a step
+    (issuing them), in turns, twice; then one call of 128 tokens each way,
+    its ms a decode step on the host clock (``decode_s`` over 127); the
+    kernels of one traced replay; the sampler's rows kernel at (128,
+    50,304) against its plain version and its bound.  Returns the launches
+    of a replay on the device."""
+    import numpy as np
+
+    from repro_torch.configs import load_config
+    from repro_torch.kernels import prng
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    t0 = time.perf_counter()
+    B, P, N, temperature = GRAPH_CELL
+    cfg = load_config("olmo-1b", "full")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    engine = ServeEngine(cfg, params, max_len=P + N + 1, batch=B,
+                         temperature=temperature, seed=7, device="cuda")
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab_size, (B, P))
+    t = time.perf_counter()
+    engine.generate(prompts, 2)                   # prefill, then the capture
+    first_call_s = time.perf_counter() - t
+    st = engine._state
+    if st.graph is None:
+        _fail("graph: the engine captured no graph on the card")
+    # the kernels of one replay, on the device
+    *_, by_launches = _profiled(torch, st.graph.replay, "graph_replay")
+    launches = {k: n for k, n in _device_launches(by_launches).items() if n}
+    want = dict(decode_scores_kernel=cfg.n_layers,
+                decode_pv_kernel=cfg.n_layers, uniform_rows_kernel=1)
+    if {k: launches.get(k, 0) for k in want} != want or \
+            launches.get("uniform_kernel"):
+        _fail(f"graph: a replay launched {launches}, expected {want} and "
+              "no uniform_kernel")
+    rows = _rows_case(torch, prng, st.seeds[1], cfg.vocab_size)
+    runs = []
+    for _ in range(2):
+        for mode, step in (("replay", st.graph.replay),
+                           ("eager", lambda: engine._decode_step(st))):
+            runs.append(dict(mode=mode, **_step_times(torch, st, step, 20,
+                                                      P + 64)))
+    calls = {}
+    for mode in ("graph", "eager"):
+        if mode == "eager":
+            engine._graphable = lambda: False
+            st.graph = None
+        res = engine.generate(prompts, N)
+        calls[mode] = dict(decode_ms_per_step=res.decode_s * 1e3 / (N - 1),
+                           prefill_ms=res.prefill_s * 1e3, tokens=res.tokens)
+    same = bool(np.array_equal(calls["graph"].pop("tokens"),
+                               calls["eager"].pop("tokens")))
+    if not same:
+        _fail("graph: the call's tokens with the graph differ from the "
+              "eager steps'")
+    out = dict(card=smi, shape=dict(batch=B, prompt=P, slots=P + N + 1,
+                                    temperature=temperature),
+               first_call_s=first_call_s, steps=runs, calls=calls,
+               tokens_identical=same, launches_a_replay=launches,
+               uniform_rows=rows)
+    print("graph:", json.dumps(out))
+    (ROOT / "chiprun_out" / "decode_graph.json").write_text(
+        json.dumps(out, indent=1))
+    del engine, params, st
+    _free(torch)
+    print(f"graph: phase wall time {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3547,14 +3772,15 @@ def _compact(entries) -> list:
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port "
-                                 "on one NVIDIA GPU (phases 1 to 14).")
-    ap.add_argument("--phase", type=int, choices=(6, 11, 12, 13, 14),
+                                 "on one NVIDIA GPU (phases 1 to 15).")
+    ap.add_argument("--phase", type=int, choices=(6, 11, 12, 13, 14, 15),
                     help="build the kernels, then run only phase 6 "
                          "(training), 11 (the serving simulator, "
                          "resilience, remat='dots' and compression), 12 "
                          "(the sharding rule table on DTensor), 13 (the "
-                         "sharded path of the MoE and SSM families) or 14 "
-                         "(decode attention); no result line is printed")
+                         "sharded path of the MoE and SSM families), 14 "
+                         "(decode attention) or 15 (the decode step's CUDA "
+                         "graph); no result line is printed")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3590,7 +3816,7 @@ def _drive(args, torch, out: Path) -> int:
         print(f"kernels built in {t_build:.1f} s into {_build.BUILD_DIR}")
         run = {6: train_phase, 11: sim_resilience_phase,
                12: sharding_phase, 13: placed_phase,
-               14: decode_phase}[args.phase]
+               14: decode_phase, 15: graph_phase}[args.phase]
         print(f"phase {args.phase} alone: launches",
               json.dumps(run(torch, smi)))
         return 0
@@ -3618,6 +3844,7 @@ def _drive(args, torch, out: Path) -> int:
     sharded = sharding_phase(torch, smi)
     placed = placed_phase(torch, smi)
     decode_phase(torch, smi)
+    graph_phase(torch, smi)
     for e in entries:
         if e["name"] in ("softmax", "exp", "uniform"):
             e["launches_remat_dots"] = remat_dots[e["name"]]
@@ -3640,6 +3867,8 @@ def _drive(args, torch, out: Path) -> int:
                          else (serving, serving_paths))
         e["launches"] = counts[e["name"]]
         e["launches_counted_in"] = f"the {phase} phase"
+        if e["name"] == "uniform":
+            e["launches_rows"] = counts["uniform_rows"]
         if e["name"] in paths:
             e["launches_by_path"] = paths[e["name"]]
     (out / "kernels.json").write_text(json.dumps({"kernels": entries},

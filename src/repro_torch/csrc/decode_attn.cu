@@ -48,6 +48,15 @@
 //     nothing), the wrapper splits each pair's slots over k = 2, 4 or 8 blocks
 //     (repro_torch/kernels/decode_attn.py:splits): independent blocks for
 //     the scores, one cluster a pair for the PV product.
+// The position is read on the card.  The launchers take the query's
+// position as a pointer to an int64 in device memory, so that a CUDA graph
+// of a decode step replays unchanged from one token to the next: each block
+// works out [lo, hi) from it and the sliding window, and the PV kernel its
+// blocks a pair (`used` of the cluster's, by the rule of `splits` in the
+// wrapper) and its slots a block.  The grids depend on the cache's length S
+// alone: the scores' k blocks a pair, the PV product's as many as S would
+// take; blocks past the `used` ones add nothing, and since a sum that
+// starts from +0 never is -0, adding their +0 changes no bit.
 // Nothing is allocated here: the wrapper allocates the outputs.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -147,17 +156,30 @@ __device__ __forceinline__ void reduce_scatter(float* v, int c, int o,
   }
 }
 
+// [lo, hi) for the query at position p: the slots the causal mask and a
+// sliding window of `window` slots (0: none) keep, cut to the cache's S.
+__device__ __forceinline__ void slots_at(int64_t p, int64_t window, int64_t S,
+                                         int64_t& lo, int64_t& hi) {
+  hi = p + 1 < S ? p + 1 : S;
+  lo = window > 0 && p + 1 - window > 0 ? p + 1 - window : 0;
+}
+
 // scores[b, h, i, 0, s] = scale * sum_d q[b, 0, h, i, d] * k[b, s, h, d] for
 // s in [lo, hi), `masked` for the other s of this block's slots
-// [blockIdx.y * split, +split).  Block: the pair blockIdx.x = b * hkv + h.
-// G >= g is the query heads a KV head's lanes hold; a slot takes
-// 2^lanes_log2 lanes.
+// [blockIdx.y * split, +split), split = S / gridDim.y rounded up.  Block:
+// the pair blockIdx.x = b * hkv + h.  G >= g is the query heads a KV head's
+// lanes hold; a slot takes 2^lanes_log2 lanes.  [lo, hi) comes from *pos
+// and `window`.
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<G>)
     decode_scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          float* __restrict__ out, int hkv, int g, int dh,
-                         int lanes_log2, int64_t S, int64_t lo, int64_t hi,
-                         int64_t split, float scale, float masked) {
+                         int lanes_log2, int64_t S,
+                         const int64_t* __restrict__ pos, int64_t window,
+                         float scale, float masked) {
+  int64_t lo, hi;
+  slots_at(*pos, window, S, lo, hi);
+  const int64_t split = (S + gridDim.y - 1) / gridDim.y;
   const int lanes = 1 << lanes_log2;
   const int rows = 32 >> lanes_log2;  // slots a warp reads at once
   const int share = lanes > G ? lanes / G : 1;  // lanes holding each sum
@@ -232,12 +254,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<G>)
 // out[b, 0, h, i, :] = sum over s in [lo, hi) of p[b, h, i, 0, s] *
 // v[b, s, h, :], in fp32, rounded once to T.  A cluster of k blocks takes
 // the pair blockIdx.x / k; rank r of it the slots [lo + r * split, +split).
+// [lo, hi) comes from *pos and `window`, and the blocks a pair that the
+// slots use from the rule of the wrapper's `splits` (at most k, so long as
+// the pairs times the blocks stay under `target`); the split follows from
+// them.
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<G>)
     decode_pv_kernel(const T* __restrict__ p, const T* __restrict__ v,
                      T* __restrict__ out, int hkv, int g, int dh,
-                     int lanes_log2, int64_t S, int64_t lo, int64_t hi,
-                     int64_t split) {
+                     int lanes_log2, int64_t S,
+                     const int64_t* __restrict__ pos, int64_t window,
+                     int target) {
   __shared__ float red[kWarps][kMaxDh];  // one head's sums, a row a warp
   __shared__ float part[G][kMaxDh];      // this block's sums, read by rank 0
   cg::cluster_group cluster = cg::this_cluster();
@@ -253,6 +280,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<G>)
   const int64_t bh = blockIdx.x / k;
   const int64_t b = bh / hkv;
   const int64_t h = bh % hkv;
+  int64_t lo, hi;
+  slots_at(*pos, window, S, lo, hi);
+  const int64_t n = hi > lo ? hi - lo : 0;
+  const int64_t pairs = gridDim.x / k;
+  const int64_t per_pass = static_cast<int64_t>(kWarps) * rows * kUnroll;
+  int used = 1;
+  while (used < k && pairs * used < target && n >= 2 * used * per_pass) {
+    used *= 2;
+  }
+  const int64_t split = (n + used - 1) / used;
 
   const int64_t stride = static_cast<int64_t>(hkv) * dh;
   const T* vp = v + (b * S * hkv + h) * dh + c * 8;
@@ -351,29 +388,27 @@ inline int lanes_log2(int dh) {
 }
 
 inline bool sizes_ok(int64_t batch, int hkv, int g, int dh, int64_t S,
-                     int64_t lo, int64_t hi, int splits) {
-  return batch > 0 && hkv > 0 && heads_bucket(g) > 0 && dh % 8 == 0 &&
-         dh >= 8 && dh <= kMaxDh && S > 0 && lo >= 0 && lo < hi && hi <= S &&
+                     int splits, int64_t window) {
+  return window >= 0 && batch > 0 && hkv > 0 && heads_bucket(g) > 0 &&
+         dh % 8 == 0 && dh >= 8 && dh <= kMaxDh && S > 0 &&
          (splits == 1 || splits == 2 || splits == 4 || splits == 8) &&
          batch * hkv * splits < (int64_t{1} << 31);
 }
 
 template <typename T, int G>
 int scores_as(const T* q, const T* k, float* out, int64_t batch, int hkv,
-              int g, int dh, int64_t S, int64_t lo, int64_t hi, int splits,
-              float scale, float masked, cudaStream_t stream) {
+              int g, int dh, int64_t S, const int64_t* pos, int64_t window,
+              int splits, float scale, float masked, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned int>(batch * hkv), splits);
-  const int64_t split = (S + splits - 1) / splits;
   decode_scores_kernel<T, G><<<grid, kThreads, 0, stream>>>(
-      q, k, out, hkv, g, dh, lanes_log2(dh), S, lo, hi, split, scale,
-      masked);
+      q, k, out, hkv, g, dh, lanes_log2(dh), S, pos, window, scale, masked);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int G>
 int pv_as(const T* p, const T* v, T* out, int64_t batch, int hkv, int g,
-          int dh, int64_t S, int64_t lo, int64_t hi, int splits,
-          cudaStream_t stream) {
+          int dh, int64_t S, const int64_t* pos, int64_t window, int splits,
+          int target, cudaStream_t stream) {
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(static_cast<unsigned int>(batch * hkv * splits));
   config.blockDim = dim3(kThreads);
@@ -385,84 +420,91 @@ int pv_as(const T* p, const T* v, T* out, int64_t batch, int hkv, int g,
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  const int64_t split = (hi - lo + splits - 1) / splits;
   const cudaError_t e = cudaLaunchKernelEx(
       &config, &decode_pv_kernel<T, G>, p, v, out, hkv, g, dh, lanes_log2(dh),
-      S, lo, hi, split);
+      S, pos, window, target);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_scores(const T* q, const T* k, float* out, int64_t batch, int hkv,
-                  int g, int dh, int64_t S, int64_t lo, int64_t hi,
-                  int splits, float scale, float masked,
+                  int g, int dh, int64_t S, const int64_t* pos,
+                  int64_t window, int splits, float scale, float masked,
                   cudaStream_t stream) {
-  if (!sizes_ok(batch, hkv, g, dh, S, lo, hi, splits)) {
+  if (!sizes_ok(batch, hkv, g, dh, S, splits, window) || pos == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (heads_bucket(g)) {
-    case 1: return scores_as<T, 1>(q, k, out, batch, hkv, g, dh, S, lo, hi,
-                                   splits, scale, masked, stream);
-    case 2: return scores_as<T, 2>(q, k, out, batch, hkv, g, dh, S, lo, hi,
-                                   splits, scale, masked, stream);
-    case 4: return scores_as<T, 4>(q, k, out, batch, hkv, g, dh, S, lo, hi,
-                                   splits, scale, masked, stream);
-    default: return scores_as<T, 8>(q, k, out, batch, hkv, g, dh, S, lo, hi,
-                                    splits, scale, masked, stream);
+    case 1: return scores_as<T, 1>(q, k, out, batch, hkv, g, dh, S, pos,
+                                   window, splits, scale, masked, stream);
+    case 2: return scores_as<T, 2>(q, k, out, batch, hkv, g, dh, S, pos,
+                                   window, splits, scale, masked, stream);
+    case 4: return scores_as<T, 4>(q, k, out, batch, hkv, g, dh, S, pos,
+                                   window, splits, scale, masked, stream);
+    default: return scores_as<T, 8>(q, k, out, batch, hkv, g, dh, S, pos,
+                                    window, splits, scale, masked, stream);
   }
 }
 
 template <typename T>
 int launch_pv(const T* p, const T* v, T* out, int64_t batch, int hkv, int g,
-              int dh, int64_t S, int64_t lo, int64_t hi, int splits,
-              cudaStream_t stream) {
-  if (!sizes_ok(batch, hkv, g, dh, S, lo, hi, splits)) {
+              int dh, int64_t S, const int64_t* pos, int64_t window,
+              int splits, int target, cudaStream_t stream) {
+  if (!sizes_ok(batch, hkv, g, dh, S, splits, window) || pos == nullptr ||
+      target < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (heads_bucket(g)) {
-    case 1: return pv_as<T, 1>(p, v, out, batch, hkv, g, dh, S, lo, hi,
-                               splits, stream);
-    case 2: return pv_as<T, 2>(p, v, out, batch, hkv, g, dh, S, lo, hi,
-                               splits, stream);
-    case 4: return pv_as<T, 4>(p, v, out, batch, hkv, g, dh, S, lo, hi,
-                               splits, stream);
-    default: return pv_as<T, 8>(p, v, out, batch, hkv, g, dh, S, lo, hi,
-                                splits, stream);
+    case 1: return pv_as<T, 1>(p, v, out, batch, hkv, g, dh, S, pos, window,
+                               splits, target, stream);
+    case 2: return pv_as<T, 2>(p, v, out, batch, hkv, g, dh, S, pos, window,
+                               splits, target, stream);
+    case 4: return pv_as<T, 4>(p, v, out, batch, hkv, g, dh, S, pos, window,
+                               splits, target, stream);
+    default: return pv_as<T, 8>(p, v, out, batch, hkv, g, dh, S, pos, window,
+                                splits, target, stream);
   }
 }
 
 }  // namespace
 
+// The products at the position *pos, an int64 in device memory, with a
+// sliding window of `window` slots (0: none): `splits` blocks a pair for
+// the scores, as S gives them, and at most `splits` for the PV product, of
+// which the position's slots use as many as the pairs and `target` allow.
 extern "C" int decode_scores_bf16(const __nv_bfloat16* q,
                                   const __nv_bfloat16* k, float* out,
                                   int64_t batch, int hkv, int g, int dh,
-                                  int64_t S, int64_t lo, int64_t hi,
-                                  int splits, float scale, float masked,
-                                  cudaStream_t stream) {
-  return launch_scores(q, k, out, batch, hkv, g, dh, S, lo, hi, splits, scale,
-                       masked, stream);
+                                  int64_t S, const int64_t* pos,
+                                  int64_t window, int splits, float scale,
+                                  float masked, cudaStream_t stream) {
+  return launch_scores(q, k, out, batch, hkv, g, dh, S, pos, window, splits,
+                       scale, masked, stream);
 }
 
 extern "C" int decode_scores_f32(const float* q, const float* k, float* out,
                                  int64_t batch, int hkv, int g, int dh,
-                                 int64_t S, int64_t lo, int64_t hi,
-                                 int splits, float scale, float masked,
-                                 cudaStream_t stream) {
-  return launch_scores(q, k, out, batch, hkv, g, dh, S, lo, hi, splits, scale,
-                       masked, stream);
+                                 int64_t S, const int64_t* pos,
+                                 int64_t window, int splits, float scale,
+                                 float masked, cudaStream_t stream) {
+  return launch_scores(q, k, out, batch, hkv, g, dh, S, pos, window, splits,
+                       scale, masked, stream);
 }
 
 extern "C" int decode_pv_bf16(const __nv_bfloat16* p, const __nv_bfloat16* v,
                               __nv_bfloat16* out, int64_t batch, int hkv,
-                              int g, int dh, int64_t S, int64_t lo,
-                              int64_t hi, int splits, cudaStream_t stream) {
-  return launch_pv(p, v, out, batch, hkv, g, dh, S, lo, hi, splits, stream);
+                              int g, int dh, int64_t S, const int64_t* pos,
+                              int64_t window, int splits, int target,
+                              cudaStream_t stream) {
+  return launch_pv(p, v, out, batch, hkv, g, dh, S, pos, window, splits,
+                   target, stream);
 }
 
 extern "C" int decode_pv_f32(const float* p, const float* v, float* out,
                              int64_t batch, int hkv, int g, int dh, int64_t S,
-                             int64_t lo, int64_t hi, int splits,
-                             cudaStream_t stream) {
-  return launch_pv(p, v, out, batch, hkv, g, dh, S, lo, hi, splits, stream);
+                             const int64_t* pos, int64_t window, int splits,
+                             int target, cudaStream_t stream) {
+  return launch_pv(p, v, out, batch, hkv, g, dh, S, pos, window, splits,
+                   target, stream);
 }

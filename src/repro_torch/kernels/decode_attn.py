@@ -18,8 +18,14 @@ einsum path's bit for bit.  The kernels sum in another order; the softmax
 gives exactly 0 wherever either version masks, so the probabilities and
 the PV product agree but for that order.
 
+The CUDA wrappers take the position as a 0-d int64 tensor on the card and
+a sliding window, and the kernels work out [lo, hi) from it there, so that
+a CUDA graph of a decode step replays unchanged as the position moves.  The
+plain versions take [lo, hi) as ints or as 0-d tensors (``bounds``), with
+the same bits.
+
 ``decode_scores_cuda.launches`` and ``decode_pv_cuda.launches`` count the
-launches.
+wrappers' launches; a CUDA graph's replays launch without calling them.
 """
 
 from __future__ import annotations
@@ -41,18 +47,30 @@ TARGET_BLOCKS = 2 * 132
 THREADS, UNROLL, MAX_DH, MAX_GROUP, MAX_SPLITS = 128, 4, 256, 8, 8
 
 
-def _bias(S: int, lo: int, hi: int, device) -> torch.Tensor:
+def bounds(pos, window: int = 0):
+    """[lo, hi) of the query at position ``pos`` (an int, or a 0-d integer
+    tensor: then 0-d tensors, but a ``lo`` of 0 without a window): the
+    slots the causal mask and a sliding window of ``window`` slots (0:
+    none) keep."""
+    if not window:
+        return 0, pos + 1
+    if isinstance(pos, torch.Tensor):
+        return torch.clamp(pos - (window - 1), min=0), pos + 1
+    return max(0, pos - window + 1), pos + 1
+
+
+def _bias(S: int, lo, hi, device) -> torch.Tensor:
     """(1, S): the causal and sliding-window mask at the query's position
     plus the mask of the cache slots past it, as the einsum path adds
-    them."""
+    them; ``lo`` and ``hi`` ints or 0-d tensors."""
     pos = torch.arange(S, device=device)[None, :]
     keep = (pos >= lo) & (pos < hi)
     bias = torch.where(keep, 0.0, NEG_INF).to(torch.float32)
     return bias + torch.where(pos < hi, 0.0, NEG_INF).to(torch.float32)
 
 
-def decode_scores_plain(q: torch.Tensor, k_cache: torch.Tensor, lo: int,
-                        hi: int, scale: float) -> torch.Tensor:
+def decode_scores_plain(q: torch.Tensor, k_cache: torch.Tensor, lo, hi,
+                        scale: float) -> torch.Tensor:
     """Plain version of ``decode_scores``: every slot's fp32 dot product,
     times ``scale``, plus the bias."""
     scores = torch.einsum("bthgd,bshd->bhgts", q.to(torch.float32),
@@ -62,8 +80,8 @@ def decode_scores_plain(q: torch.Tensor, k_cache: torch.Tensor, lo: int,
     return scores + bias[None, None, None]
 
 
-def decode_pv_plain(p: torch.Tensor, v_cache: torch.Tensor, lo: int,
-                    hi: int) -> torch.Tensor:
+def decode_pv_plain(p: torch.Tensor, v_cache: torch.Tensor, lo,
+                    hi) -> torch.Tensor:
     """Plain version of ``decode_pv``: the product over every slot (``p`` is
     0 outside [lo, hi)); ``lo`` and ``hi`` change no value."""
     return torch.einsum("bhgts,bshd->bthgd", p, v_cache)
@@ -90,15 +108,17 @@ def splits(pairs: int, rows: int, dh: int) -> int:
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I64, _INT, _F32 = _build.PTR, _build.I64, _build.INT, _build.F32
-_SCORES_ARGS = (_P, _P, _P, _I64, _INT, _INT, _INT, _I64, _I64, _I64, _INT,
+_SCORES_ARGS = (_P, _P, _P, _I64, _INT, _INT, _INT, _I64, _P, _I64, _INT,
                 _F32, _F32, _P)
-_PV_ARGS = (_P, _P, _P, _I64, _INT, _INT, _INT, _I64, _I64, _I64, _INT, _P)
+_PV_ARGS = (_P, _P, _P, _I64, _INT, _INT, _INT, _I64, _P, _I64, _INT, _INT,
+            _P)
 
 
 def _check(x: torch.Tensor, cache: torch.Tensor, shape: tuple, g: int,
-           lo: int, hi: int, what: str) -> None:
+           pos: torch.Tensor, window: int, what: str) -> None:
     """Raise unless ``x`` (a query or probabilities, of ``shape`` with ``g``
-    query heads a KV head) and ``cache`` (B, S, Hkv, Dh) are what the kernel
+    query heads a KV head), ``cache`` (B, S, Hkv, Dh), the position ``pos``
+    (a 0-d int64 tensor beside them) and ``window`` are what the kernel
     takes: shapes, dtypes and layout first, then the device."""
     if cache.ndim != 4 or tuple(x.shape) != shape:
         raise ValueError(f"{what}: expected {shape} beside a (B, S, Hkv, Dh) "
@@ -107,6 +127,10 @@ def _check(x: torch.Tensor, cache: torch.Tensor, shape: tuple, g: int,
     if cache.dtype not in _SUFFIX or x.dtype != cache.dtype:
         raise TypeError(f"{what}: dtypes {x.dtype} and {cache.dtype}; the "
                         f"kernel takes one of {tuple(_SUFFIX)} for both")
+    if not isinstance(pos, torch.Tensor) or pos.ndim or \
+            pos.dtype != torch.int64:
+        raise TypeError(f"{what}: the position is a 0-d int64 tensor, got "
+                        f"{pos!r}")
     if not (x.is_contiguous() and cache.is_contiguous()):
         raise ValueError(f"{what}: expected contiguous tensors")
     dh = cache.shape[-1]
@@ -116,13 +140,13 @@ def _check(x: torch.Tensor, cache: torch.Tensor, shape: tuple, g: int,
     if not 1 <= g <= MAX_GROUP:
         raise ValueError(f"{what}: {g} query heads a KV head, not 1 to "
                          f"{MAX_GROUP}")
-    if not 0 <= lo < hi <= cache.shape[1]:
-        raise ValueError(f"{what}: slots [{lo}, {hi}) outside the cache's "
-                         f"{cache.shape[1]}")
+    if window < 0:
+        raise ValueError(f"{what}: window {window} < 0")
     for t in (x, cache):
         _build.check_cuda_tensor(t, (cache.dtype,), what)
-    if x.device != cache.device:
-        raise ValueError(f"{what}: inputs on {x.device} and {cache.device}")
+    if not x.device == cache.device == pos.device:
+        raise ValueError(f"{what}: inputs on {x.device}, {cache.device} and "
+                         f"{pos.device}")
     if x.data_ptr() % 16 or cache.data_ptr() % 16:
         raise ValueError(f"{what}: an input is not 16-byte aligned")
 
@@ -134,18 +158,22 @@ def _dims(cache: torch.Tensor, x: torch.Tensor, group_dim: int):
     return B, S, Hkv, Dh, x.shape[group_dim] if x.ndim == 5 else 0
 
 
-def decode_scores_cuda(q: torch.Tensor, k_cache: torch.Tensor, lo: int,
-                       hi: int, scale: float) -> torch.Tensor:
-    """Launch ``csrc/decode_attn.cu``'s score product: ``q`` (B, 1, Hkv, g,
-    Dh) and ``k_cache`` (B, S, Hkv, Dh), contiguous CUDA tensors of one
-    dtype, bf16 or fp32; fp32 scores (B, Hkv, g, 1, S)."""
+def decode_scores_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                       pos: torch.Tensor, window: int,
+                       scale: float) -> torch.Tensor:
+    """Launch ``csrc/decode_attn.cu``'s score product at the slots
+    ``bounds(pos, window)``, the position ``pos`` (a 0-d int64 tensor) read
+    on the card: ``q`` (B, 1, Hkv, g, Dh) and ``k_cache`` (B, S, Hkv, Dh),
+    contiguous CUDA tensors of one dtype, bf16 or fp32; fp32 scores (B,
+    Hkv, g, 1, S)."""
     B, S, Hkv, Dh, g = _dims(k_cache, q, 3)
-    _check(q, k_cache, (B, 1, Hkv, g, Dh), g, lo, hi, "decode_scores_cuda")
+    _check(q, k_cache, (B, 1, Hkv, g, Dh), g, pos, window,
+           "decode_scores_cuda")
     out = torch.empty((B, Hkv, g, 1, S), dtype=torch.float32,
                       device=q.device)
     _build.launch("decode_attn", f"decode_scores_{_SUFFIX[q.dtype]}",
                   _SCORES_ARGS, q.data_ptr(), k_cache.data_ptr(),
-                  out.data_ptr(), B, Hkv, g, Dh, S, lo, hi,
+                  out.data_ptr(), B, Hkv, g, Dh, S, pos.data_ptr(), window,
                   splits(B * Hkv, S, Dh), scale, NEG_INF, _build.stream(q))
     decode_scores_cuda.launches += 1
     return out
@@ -154,19 +182,22 @@ def decode_scores_cuda(q: torch.Tensor, k_cache: torch.Tensor, lo: int,
 decode_scores_cuda.launches = 0
 
 
-def decode_pv_cuda(p: torch.Tensor, v_cache: torch.Tensor, lo: int,
-                   hi: int) -> torch.Tensor:
-    """Launch ``csrc/decode_attn.cu``'s PV product: ``p`` (B, Hkv, g, 1, S)
-    and ``v_cache`` (B, S, Hkv, Dh), contiguous CUDA tensors of one dtype,
-    bf16 or fp32; (B, 1, Hkv, g, Dh) in that dtype, summed in fp32 over
-    [lo, hi)."""
+def decode_pv_cuda(p: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor,
+                   window: int) -> torch.Tensor:
+    """Launch ``csrc/decode_attn.cu``'s PV product at the slots
+    ``bounds(pos, window)``, the position ``pos`` (a 0-d int64 tensor) read
+    on the card: ``p`` (B, Hkv, g, 1, S) and ``v_cache`` (B, S, Hkv, Dh),
+    contiguous CUDA tensors of one dtype, bf16 or fp32; (B, 1, Hkv, g, Dh)
+    in that dtype, summed in fp32 over [lo, hi).  A cluster of ``splits``
+    blocks over the whole cache a pair, of which the kernel uses the blocks
+    ``splits`` gives the position's slots."""
     B, S, Hkv, Dh, g = _dims(v_cache, p, 2)
-    _check(p, v_cache, (B, Hkv, g, 1, S), g, lo, hi, "decode_pv_cuda")
+    _check(p, v_cache, (B, Hkv, g, 1, S), g, pos, window, "decode_pv_cuda")
     out = torch.empty((B, 1, Hkv, g, Dh), dtype=p.dtype, device=p.device)
     _build.launch("decode_attn", f"decode_pv_{_SUFFIX[p.dtype]}", _PV_ARGS,
                   p.data_ptr(), v_cache.data_ptr(), out.data_ptr(), B, Hkv,
-                  g, Dh, S, lo, hi, splits(B * Hkv, hi - lo, Dh),
-                  _build.stream(p))
+                  g, Dh, S, pos.data_ptr(), window, splits(B * Hkv, S, Dh),
+                  TARGET_BLOCKS, _build.stream(p))
     decode_pv_cuda.launches += 1
     return out
 

@@ -203,25 +203,31 @@ def softmax(x: torch.Tensor, axis: int = -1, impl: str | None = None,
     return _softmax.SoftmaxFn.apply(x, True, rows)
 
 
-def decode_scores(q: torch.Tensor, k_cache: torch.Tensor, lo: int, hi: int,
-                  scale: float, impl: str | None = None) -> torch.Tensor:
+def decode_scores(q: torch.Tensor, k_cache: torch.Tensor,
+                  pos: torch.Tensor, window: int, scale: float,
+                  impl: str | None = None) -> torch.Tensor:
     """Decode attention's score product over a KV cache, in place: ``q``
-    (B, 1, Hkv, g, Dh) against ``k_cache`` (B, S, Hkv, Dh); fp32 scores
-    (B, Hkv, g, 1, S), ``scale`` times the dot product on the slots
-    [lo, hi) that the mask keeps, ``decode_attn.NEG_INF`` on the others."""
+    (B, 1, Hkv, g, Dh) against ``k_cache`` (B, S, Hkv, Dh) at the position
+    ``pos``, a 0-d int64 tensor beside them that the kernel reads on the
+    card; fp32 scores (B, Hkv, g, 1, S), ``scale`` times the dot product on
+    the slots [lo, hi) = ``decode_attn.bounds(pos, window)`` that the mask
+    keeps, ``decode_attn.NEG_INF`` on the others."""
     if not _use_kernel(impl, q.device):
-        return _decode.decode_scores_plain(q, k_cache, lo, hi, scale)
-    return _decode.decode_scores_cuda(q, k_cache, lo, hi, scale)
+        return _decode.decode_scores_plain(
+            q, k_cache, *_decode.bounds(pos, window), scale)
+    return _decode.decode_scores_cuda(q, k_cache, pos, window, scale)
 
 
-def decode_pv(p: torch.Tensor, v_cache: torch.Tensor, lo: int, hi: int,
-              impl: str | None = None) -> torch.Tensor:
+def decode_pv(p: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor,
+              window: int, impl: str | None = None) -> torch.Tensor:
     """Decode attention's PV product over a KV cache, in place: the
-    probabilities ``p`` (B, Hkv, g, 1, S), 0 outside [lo, hi), times
-    ``v_cache`` (B, S, Hkv, Dh); (B, 1, Hkv, g, Dh) in ``p``'s dtype."""
+    probabilities ``p`` (B, Hkv, g, 1, S), 0 outside the slots
+    ``decode_attn.bounds(pos, window)``, times ``v_cache`` (B, S, Hkv, Dh);
+    (B, 1, Hkv, g, Dh) in ``p``'s dtype."""
     if not _use_kernel(impl, p.device):
-        return _decode.decode_pv_plain(p, v_cache, lo, hi)
-    return _decode.decode_pv_cuda(p, v_cache, lo, hi)
+        return _decode.decode_pv_plain(p, v_cache,
+                                       *_decode.bounds(pos, window))
+    return _decode.decode_pv_cuda(p, v_cache, pos, window)
 
 
 def uniform(seed: int, shape: tuple[int, ...], kind: str = "xoshiro128p",
@@ -237,6 +243,18 @@ def uniform(seed: int, shape: tuple[int, ...], kind: str = "xoshiro128p",
     else:
         u = _prng.uniform_plain(seed, n, kind, device)
     return u.reshape(shape)
+
+
+def uniform_rows(seeds: torch.Tensor, n: int, kind: str = "xoshiro128p",
+                 impl: str | None = None,
+                 block_rows: int | None = None) -> torch.Tensor:
+    """(R, n) uniforms, row ``r`` those of ``uniform(seeds[r], (n,))`` bit
+    for bit, the seeds read where they lie: ``seeds`` (R,) int32 holding
+    uint32 bits (or int64 uint32 values, on the plain route)."""
+    if _use_kernel(impl, seeds.device):
+        rows = _resolve_rows("prng", block_rows, _prng.DEFAULT_BLOCK_ROWS)
+        return _prng.uniform_rows_cuda(seeds, n, kind, rows)
+    return _prng.uniform_rows_plain(seeds, n, kind)
 
 
 def _monte_carlo(problem: str, seed: int, n_samples: int, kind: str,

@@ -6,7 +6,10 @@ matrix goes through the COPIFT softmax kernel and the exp of the chunked
 decode step (one query a row over a KV cache, plain tensors) runs its two
 products through the decode-attention kernels (``ops.decode_scores``,
 ``ops.decode_pv``), which read the cache in place at the slots the mask
-keeps.
+keeps.  The decode step's position may be a 0-d int64 tensor on the
+device (the serving engine's, which a CUDA graph replays): the new keys and
+values then go to the cache by ``index_copy_`` and the kernels read the
+position where it lies.
 
 Layout as in the JAX package: q (B, T, H, Dh); kv (B, S, Hkv, Dh); GQA
 repeats kv groups at use.  On DTensors (the sharded step) the two products
@@ -24,6 +27,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import decode_attn
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.decode_attn import NEG_INF
 from repro_torch.models import layers as L
@@ -256,9 +260,10 @@ def _chunked_attention(cfg: ModelConfig, q, k, v, q_offset: int,
 
 
 def attention(p: Attention, cfg: ModelConfig, x, positions, kv_cache=None,
-              cache_index: int | None = None):
+              cache_index: int | torch.Tensor | None = None):
     """x: (B, T, D).  Training/prefill: kv_cache None.
-    Decode: kv_cache = dict(k=(B, S, Hkv, Dh), v=...), cache_index an int —
+    Decode: kv_cache = dict(k=(B, S, Hkv, Dh), v=...), cache_index an int,
+    or for one query a row a 0-d int64 tensor on the cache's device —
     writes the new keys and values into the cache IN PLACE at
     ``cache_index`` (the JAX package returns an updated copy; writing in
     place saves one cache copy per layer per step) and attends over the
@@ -286,8 +291,17 @@ def _attention(p: Attention, cfg: ModelConfig, x, positions, kv_cache,
     k = _rotate(cfg, k, positions)
 
     if kv_cache is not None:
-        kv_cache["k"][:, cache_index:cache_index + T] = k
-        kv_cache["v"][:, cache_index:cache_index + T] = v
+        if isinstance(cache_index, torch.Tensor):
+            if T != 1:
+                raise ValueError(f"a position held in a tensor writes one "
+                                 f"token a row, not {T}")
+            at = cache_index.reshape(1)
+            for name, new in (("k", k), ("v", v)):
+                kv_cache[name].index_copy_(1, at,
+                                           new.to(kv_cache[name].dtype))
+        else:
+            kv_cache["k"][:, cache_index:cache_index + T] = k
+            kv_cache["v"][:, cache_index:cache_index + T] = v
         k, v = kv_cache["k"], kv_cache["v"]
         q_offset = cache_index
     else:
@@ -338,18 +352,22 @@ def _scores_pv(cfg: ModelConfig, qg, k, v, q_offset: int, cached: bool, dt):
                    _Heads.KV, _Heads.QG)
 
 
-def _decode(cfg: ModelConfig, qg, k, v, pos: int, dt, sp):
+def _decode(cfg: ModelConfig, qg, k, v, pos, dt, sp):
     """One query a row at cache position ``pos``: the two products read the
     cache in place, only at the slots [lo, hi) that the causal and
     sliding-window mask keeps, with the softmax between.  (B, 1, Hkv, g,
-    Dh) in ``dt``."""
-    lo = max(0, pos - cfg.sliding_window + 1) if cfg.sliding_window else 0
-    hi = pos + 1
-    sp.count(decode_kernel=1, cache_slots=qg.shape[0] * (hi - lo))
-    scores = kops.decode_scores(qg.contiguous(), k, lo, hi,
+    Dh) in ``dt``.  ``pos`` a 0-d int64 tensor on the cache's device, which
+    the kernels read where it lies, or an int, made into one."""
+    window = cfg.sliding_window or 0
+    if isinstance(sp, card.Span):     # a tensor's bounds only when recorded
+        lo, hi = decode_attn.bounds(pos, window)
+        sp.count(decode_kernel=1, cache_slots=qg.shape[0] * (hi - lo))
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.tensor(pos, dtype=torch.int64, device=k.device)
+    scores = kops.decode_scores(qg.contiguous(), k, pos, window,
                                 qg.shape[-1] ** -0.5, impl=cfg.softmax_impl)
     w = _softmax(cfg, scores).to(dt)
-    return kops.decode_pv(w, v, lo, hi, impl=cfg.softmax_impl)
+    return kops.decode_pv(w, v, pos, window, impl=cfg.softmax_impl)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -252,8 +252,11 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     if sec.sum() != d_head // 2:
         raise ValueError(f"M-RoPE sections {sections} do not sum to "
                          f"d_head/2 = {d_head // 2}")
-    sel = replicated_like(torch.as_tensor(np.repeat(np.arange(3), sec),
-                                          device=x.device), positions3)
+    # The stream of each frequency slot, made where x lies (no copy from
+    # the host, which a CUDA graph of a decode step could not capture).
+    slot = torch.arange(d_head // 2, device=x.device)
+    sel = replicated_like((slot >= int(sec[0])).long()
+                          + (slot >= int(sec[0] + sec[1])).long(), positions3)
     pos = positions3.index_select(0, sel)                     # (Dh/2, B, T)
     ang = pos.movedim(0, -1).to(torch.float32) * inv
     return _rotate_pairs(x, ang)

@@ -28,6 +28,9 @@ inside a backward pass (a checkpoint's recompute) is recorded as pass
 half opens and closes in the autograd engine's hooks, in two different
 nodes' host ranges, so it has device times and no host range.
 
+Inside ``with card.off():`` no span records, profiler or not: a CUDA graph
+is captured there, and a span's CUDA events must never go into one.
+
 Records live in memory, at most ``MAX_RECORDS`` (later spans are counted in
 ``dropped()``), and are read with :func:`read`.  A unit span (a training
 step, a ``generate`` call) numbers every record opened while it is open.
@@ -35,6 +38,7 @@ step, a ``generate`` call) numbers every record opened while it is open.
 
 from __future__ import annotations
 
+import contextlib
 import heapq
 import time
 from dataclasses import dataclass, field
@@ -226,11 +230,27 @@ class _Off:
 OFF = _Off()
 
 
+#: Open ``off()`` blocks.
+_OFF_DEPTH = 0
+
+
+@contextlib.contextmanager
+def off():
+    """No span records inside the block, whether the profiler records or
+    not (a CUDA graph's capture: the spans' events would be captured)."""
+    global _OFF_DEPTH
+    _OFF_DEPTH += 1
+    try:
+        yield
+    finally:
+        _OFF_DEPTH -= 1
+
+
 def span(name: str, unit: bool = False):
     """``with span(name) as sp:`` times the block as ``name`` while
-    ``torch.profiler`` records; ``unit=True`` makes it a unit that numbers
-    the records opened inside it."""
-    if not _profiling():
+    ``torch.profiler`` records, outside ``off()``; ``unit=True`` makes it a
+    unit that numbers the records opened inside it."""
+    if _OFF_DEPTH or not _profiling():
         return OFF
     return Span(name, unit)
 

@@ -4,10 +4,18 @@ engine.
 The decode step is ONE new token against a ``max_len``-deep KV cache, which
 attention writes in place at ``cache_index``.  Temperature sampling draws
 its Gumbel noise from the COPIFT xoshiro128+ uniform kernel, one counter
-stream per (engine seed, slot, prompt, step).  ``autotune=True`` lets the
-analytic model's tuner pick the kernels' tilings and the cluster operating
-plan (and, with ``system=``, the manycore part's cluster count), as the JAX
-package's engine does.
+stream per (engine seed, slot, prompt, step), all of a step's rows in one
+launch.  ``autotune=True`` lets the analytic model's tuner pick the
+kernels' tilings and the cluster operating plan (and, with ``system=``, the
+manycore part's cluster count), as the JAX package's engine does.
+
+The engine's decode step reads everything from device memory at fixed
+addresses (``_DecodeState``): the cache it owns, the last tokens, the
+position as a 0-d tensor and the step's sampler seeds, and it writes its
+tokens there.  On a CUDA device with plain-tensor parameters it captures
+that step, the sample included, as one CUDA graph at its first decode step
+and replays it once a token; elsewhere (the CPU, DTensor parameters) it
+runs the same step eagerly.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
@@ -34,9 +44,10 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
 
 def make_serve_step(cfg: ModelConfig):
     """serve_step(params, cache, tokens (B,1), cache_index) →
-    (logits (B,V), cache); the cache is updated in place."""
+    (logits (B,V), cache); the cache is updated in place.  ``cache_index``
+    an int, or a 0-d int64 tensor on the cache's device."""
 
-    def serve_step(params, cache, tokens, cache_index: int):
+    def serve_step(params, cache, tokens, cache_index):
         logits, cache, _ = forward(params, cfg, {"tokens": tokens},
                                    cache=cache, cache_index=cache_index,
                                    logits_mode="last")
@@ -69,6 +80,41 @@ def _mix32(*words: int) -> int:
         h = (h * 0xC2B2AE35) & 0xFFFFFFFF
         h ^= h >> 16
     return h
+
+
+def _step_seeds(slot_seeds: list[int], steps: int) -> np.ndarray:
+    """(steps, B) uint32: ``_mix32(slot_seeds[b], i)`` at [i, b], the
+    murmur3 finaliser of ``_mix32`` in numpy's wrapping uint32."""
+    h = np.full((steps, len(slot_seeds)), 0x9E3779B9, dtype=np.uint32)
+    for w in (np.asarray(slot_seeds, dtype=np.uint32)[None],
+              np.arange(steps, dtype=np.uint32)[:, None]):
+        h = h ^ w
+        h = h * np.uint32(0x85EBCA6B)
+        h ^= h >> np.uint32(13)
+        h = h * np.uint32(0xC2B2AE35)
+        h ^= h >> np.uint32(16)
+    return h
+
+
+class _DecodeState:
+    """What a decode step reads and writes, at addresses fixed for the
+    engine's life: the cache, the last tokens (B, 1), the position (0-d
+    int64), the step's number (1,), a row of sampler seeds a step (max_len,
+    B) int32 and the sampled tokens (B, max_len) int64; and the step's CUDA
+    graph once captured (its logits output and the kernel settings it was
+    captured under)."""
+
+    def __init__(self, cfg: ModelConfig, batch: int, max_len: int, device):
+        def zeros(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.cache = make_cache(cfg, batch, max_len, device)
+        self.tok = zeros(batch, 1)
+        self.pos = zeros()
+        self.step = zeros(1)
+        self.seeds = zeros(max_len, batch, dtype=torch.int32)
+        self.tokens = zeros(batch, max_len)
+        self.graph = self.logits = self.settings = None
 
 
 @dataclass
@@ -185,6 +231,7 @@ class ServeEngine:
                             f"serve.plan.system.{name}.time_ns", c.time_ns)
         self._prefill = make_prefill(cfg)
         self._step = make_serve_step(cfg)
+        self._state: _DecodeState | None = None
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -214,21 +261,97 @@ class ServeEngine:
         return [_mix32(self.seed, slot, zlib.crc32(rows[slot].tobytes()))
                 for slot in range(rows.shape[0])]
 
-    def _sample(self, logits: torch.Tensor, step: int,
-                slot_seeds: list[int]) -> torch.Tensor:
+    def _sample(self, logits: torch.Tensor, step: torch.Tensor,
+                seeds: torch.Tensor) -> torch.Tensor:
+        """(B,) tokens from logits (B, V): the argmax, or at a temperature
+        the Gumbel trick with xoshiro uniforms (the paper's PRNG), one
+        counter stream per (engine, slot, step), a step's rows in one
+        launch.  ``step`` the step number (1,) int64 and ``seeds`` the
+        seeds table (steps, B) int32 (``_step_seeds``), both on the logits'
+        device, where the step's row is read."""
         if self.temperature <= 0.0:
             return torch.argmax(logits, dim=-1)
-        # Gumbel trick with xoshiro uniforms (the paper's PRNG), one
-        # counter stream per (engine, slot, step).
-        u = torch.stack([kops.uniform(_mix32(s, step), logits.shape[-1:],
-                                      device=logits.device)
-                         for s in slot_seeds])
+        row = seeds.index_select(0, step)[0]
+        u = kops.uniform_rows(row, logits.shape[-1])
         g = -torch.log(-torch.log(torch.clamp(u, min=1e-12)))
         return torch.argmax(logits / self.temperature + g, dim=-1)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _decode_state(self) -> _DecodeState:
+        if self._state is None:
+            self._state = _DecodeState(self.cfg, self.batch, self.max_len,
+                                       self.device)
+        return self._state
+
+    def _take(self, st: _DecodeState, logits: torch.Tensor) -> None:
+        """Sample step ``st.step``'s tokens from ``logits``, record them and
+        feed them to the next step, on the device."""
+        tok = self._sample(logits, st.step, st.seeds)[:, None]
+        st.tokens.index_copy_(1, st.step, tok)
+        st.tok.copy_(tok)
+        st.step.add_(1)
+
+    def _decode_step(self, st: _DecodeState) -> torch.Tensor:
+        """One decode step, sampled, eagerly: the logits (B, V) of the
+        tokens ``st.tok`` at ``st.pos``."""
+        with card.span("serve.decode_step") as sp:
+            sp.count(graph=0)
+            logits, _ = self._step(self.params, st.cache, st.tok, st.pos)
+            st.pos.add_(1)
+        with card.span("serve.sample"):
+            self._take(st, logits)
+        return logits
+
+    def _graphable(self) -> bool:
+        """Whether the decode step is captured as a CUDA graph: on a CUDA
+        device, with plain-tensor parameters (the cache is the engine's own,
+        plain tensors), the step reads only device memory at fixed
+        addresses and allocates only in the graph's pool.  A DTensor step
+        stays eager."""
+        return self.device.type == "cuda" and not any(
+            isinstance(p, DTensor) for p in self.params.parameters())
+
+    def _capture(self, st: _DecodeState) -> torch.Tensor:
+        """Run the step this call is at eagerly on a side stream (the
+        warm-up a capture needs), then capture the step, the sample in it,
+        as ``st.graph``, leaving the cache, the position and the tokens as
+        the eager step left them.  Returns the eager step's logits.  The
+        capture calls the kernels' wrappers, which count it as a launch;
+        a replay launches without calling them, and ``serve.decode_step``
+        counts it as ``graph`` 1."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            logits = self._decode_step(st)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with card.off(), torch.cuda.graph(graph, stream=side):
+            st.logits = self._decode_step(st)
+        st.graph, st.settings = graph, self._settings()
+        return logits
+
+    @staticmethod
+    def _settings() -> tuple:
+        """The kernel settings a capture bakes in: the impl and the
+        tilings."""
+        return kops.current_impl(), kops.tuned_defaults_enabled()
+
+    def _advance(self, st: _DecodeState, sp) -> torch.Tensor:
+        """The next decode step: a replay of the captured graph, else its
+        capture (the first on a CUDA device, or after a change of kernel
+        settings), else an eager step."""
+        if st.graph is not None and st.settings == self._settings():
+            with card.span("serve.decode_step") as step_sp:
+                step_sp.count(graph=1)
+                st.graph.replay()
+            return st.logits
+        if self._graphable():
+            sp.count(graph_captures=1)
+            return self._capture(st)
+        return self._decode_step(st)
 
     @torch.no_grad()
     def generate(self, prompts: np.ndarray, n_steps: int) -> GenerationResult:
@@ -251,31 +374,37 @@ class ServeEngine:
                 f"max_len or decode fewer steps.")
         if n_steps == 0:
             return GenerationResult(prompts.astype(np.int32), 0)
-        with card.span("serve.generate", unit=True):
-            return self._generate(prompts, n_steps)
+        with card.span("serve.generate", unit=True) as sp:
+            return self._generate(prompts, n_steps, sp)
 
-    def _generate(self, prompts: np.ndarray,
-                  n_steps: int) -> GenerationResult:
+    def _generate(self, prompts: np.ndarray, n_steps: int,
+                  sp) -> GenerationResult:
         B, plen = prompts.shape
-        slot_seeds = self._slot_seeds(prompts)
+        st = self._decode_state()
+        sp.count(graph_captures=0)
+        if self.temperature > 0.0:
+            seeds = _step_seeds(self._slot_seeds(prompts), n_steps)
+            st.seeds[:n_steps].copy_(torch.from_numpy(seeds.view(np.int32)))
         toks = torch.as_tensor(prompts, dtype=torch.int64, device=self.device)
-        cache = make_cache(self.cfg, B, self.max_len, self.device)
+        # the cache as make_cache gives it: the recurrent states start at 0
+        for t in tree_leaves(st.cache):
+            t.zero_()
         t0 = time.perf_counter()
         with card.span("serve.prefill"):
-            logits, cache = self._prefill(self.params, cache, toks)
+            logits, _ = self._prefill(self.params, st.cache, toks)
+            st.pos.fill_(plen)
+            st.step.zero_()
         self._sync()
         t1 = time.perf_counter()
-        out, seen = [toks], []
-        for i in range(n_steps):
-            seen.append(logits)
-            with card.span("serve.sample"):
-                tok = self._sample(logits, i, slot_seeds)[:, None]
-            out.append(tok)
-            if i + 1 < n_steps:
-                with card.span("serve.decode_step"):
-                    logits, cache = self._step(self.params, cache, tok,
-                                               plen + i)
-        tokens = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
+        seen = torch.empty((B, n_steps, logits.shape[-1]),
+                           dtype=torch.float32, device=self.device)
+        seen[:, 0].copy_(logits)
+        with card.span("serve.sample"):
+            self._take(st, logits)
+        for i in range(1, n_steps):
+            seen[:, i].copy_(self._advance(st, sp))
+        new = st.tokens[:, :n_steps].cpu().numpy()
+        tokens = np.concatenate([prompts, new], axis=1).astype(np.int32)
         t2 = time.perf_counter()
-        return GenerationResult(tokens, n_steps, torch.stack(seen, dim=1),
-                                prefill_s=t1 - t0, decode_s=t2 - t1)
+        return GenerationResult(tokens, n_steps, seen, prefill_s=t1 - t0,
+                                decode_s=t2 - t1)

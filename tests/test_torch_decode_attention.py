@@ -4,7 +4,8 @@
 On the CPU: the plain score product, the softmax and the plain PV product
 give the einsum path's output (``attention._scores_pv`` with one query a
 row) bit for bit, at every decoder family's group size and head size, a
-ragged cache of 1,153 slots, three positions and a sliding window;
+ragged cache of 1,153 slots, three positions and a sliding window, and at
+a position held in a 0-d tensor the bits of the equal int;
 ``attention()`` takes them for one query a row over a plain cache, and
 counts ``decode_kernel`` and ``cache_slots`` on its ``attn.core`` span,
 and keeps the einsum path for a prefill, for training and on DTensors; the
@@ -14,7 +15,9 @@ On the card (marked ``card``; they skip without a CUDA device, and run
 with ``python3 -m pytest -m card tests/test_torch_decode_attention.py`` on
 a machine with one): the kernels against the plain versions at
 ``olmo-1b.decode``'s shape and at each family's, the softmax's exact zeros
-where the PV kernel skips, and the launch counters.  The tolerances are
+where the PV kernel skips, the launch counters, and the kernels at
+positions that use 1, 2 or all of the PV product's blocks a pair, in bf16
+and fp32.  The kernels read the position on the card.  The tolerances are
 those of fp32 sums taken in another order: the score products' terms are
 exact (bf16 products) and the PV product rounds once to bf16.
 """
@@ -89,6 +92,27 @@ class TestPlain:
         assert got.dtype == torch.bfloat16 and got.shape == want.shape
         assert torch.equal(got, want)
 
+    @pytest.mark.parametrize("window", [0, WINDOW], ids=["causal", "window"])
+    @pytest.mark.parametrize("pos", [0, WINDOW - 1, S // 2, S - 1],
+                             ids=["first", "window", "mid", "last"])
+    def test_a_tensor_position_gives_the_ints_bits(self, pos, window):
+        qg, k, v = _inputs(2, S, 2, 4, 16, seed=pos + window)
+        at = torch.tensor(pos)
+        lo, hi = _window(pos, window)
+        assert (lo, hi) == D.bounds(pos, window)
+        assert [int(b) for b in D.bounds(at, window)] == [lo, hi]
+        scores = D.decode_scores_plain(qg, k, lo, hi, 0.25)
+        for pos_ in (at, pos):
+            assert torch.equal(ops.decode_scores(qg, k, pos_, window, 0.25),
+                               scores)
+        p = ops.softmax(scores).to(v.dtype)
+        assert torch.equal(ops.decode_pv(p, v, at, window),
+                           D.decode_pv_plain(p, v, lo, hi))
+        cfg = _cfg(4, 16, window)
+        assert torch.equal(
+            A._decode(cfg, qg, k, v, at, torch.bfloat16, card.OFF),
+            A._decode(cfg, qg, k, v, pos, torch.bfloat16, card.OFF))
+
     def test_masked_slots_and_the_softmax_zeros(self):
         qg, k, _ = _inputs(2, S, 2, 4, 16)
         lo, hi = _window(700, WINDOW)
@@ -139,6 +163,32 @@ class TestRoute:
                                  "cache_slots": B * (hi - lo)}
         assert out.shape == (B, 1, cfg.d_model)
 
+    @pytest.mark.parametrize("window", [0, 4], ids=["causal", "window"])
+    def test_a_tensor_position(self, monkeypatch, window):
+        """The keys and values land at the position, as at the int, and
+        the span counts the same slots."""
+        cfg = _cfg(2, 16, window, dtype="float32")
+        p, B, pos = _layer(cfg), 3, 9
+        calls = _spy(monkeypatch)
+        x = torch.randn(B, 1, cfg.d_model)
+        outs, caches = [], []
+        for at in (pos, torch.tensor(pos)):
+            cache = {n: torch.randn(B, 16, 2, 16,
+                                    generator=torch.Generator().manual_seed(1))
+                     for n in ("k", "v")}
+            with profile(activities=[ProfilerActivity.CPU]):
+                out, _ = A.attention(p, cfg, x, torch.full((B, 1), pos),
+                                     cache, at)
+            outs.append(out)
+            caches.append(cache)
+        assert calls == ["decode_scores", "decode_pv"] * 2   # one route
+        assert torch.equal(outs[0], outs[1])
+        assert all(torch.equal(caches[0][n], caches[1][n]) for n in "kv")
+        cores = [r for r in card.read() if r.name == "attn.core"]
+        lo, hi = _window(pos, window)
+        assert [r.counters for r in cores] == [
+            {"decode_kernel": 1, "cache_slots": B * (hi - lo)}] * 2
+
     def test_not_for_a_prefill_or_training(self, monkeypatch):
         cfg = _cfg(2, 16, dtype="float32")
         p, B, T = _layer(cfg), 2, 5
@@ -181,22 +231,24 @@ class TestRoute:
 class TestWrapper:
     def test_a_cpu_tensor_under_impl_cuda(self):
         qg, k, v = _inputs(1, 32, 2, 1, 16)
+        at = torch.tensor(4)
         with pytest.raises(ValueError, match="impl='cuda'"):
-            ops.decode_scores(qg, k, 0, 5, 0.25, impl="cuda")
+            ops.decode_scores(qg, k, at, 0, 0.25, impl="cuda")
         p = torch.zeros(1, 2, 1, 1, 32, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="impl='cuda'"):
-            ops.decode_pv(p, v, 0, 5, impl="cuda")
+            ops.decode_pv(p, v, at, 0, impl="cuda")
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
-            D.decode_scores_cuda(qg, k, 0, 5, 0.25)
+            D.decode_scores_cuda(qg, k, at, 0, 0.25)
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
-            D.decode_pv_cuda(p, v, 0, 5)
+            D.decode_pv_cuda(p, v, at, 0)
 
     @pytest.mark.parametrize("case", [
         "float16", "mixed dtypes", "strided cache", "head size 12",
         "head size 264", "16 heads a KV head", "query shape",
-        "empty slots", "slots past the cache"])
+        "negative window", "int position", "int32 position",
+        "position of one element", "position of two"])
     def test_refuses_what_the_kernel_does_not_take(self, case):
-        g, dh, lo, hi = 1, 16, 0, 5
+        g, dh, pos, window = 1, 16, torch.tensor(4), 0
         if case == "head size 12":
             dh = 12
         if case == "head size 264":
@@ -212,13 +264,20 @@ class TestWrapper:
             k = k.transpose(0, 1).contiguous().transpose(0, 1)
         if case == "query shape":
             qg = qg[:, :, :1].contiguous()
-        if case == "empty slots":
-            lo = hi
-        if case == "slots past the cache":
-            hi = 33
-        err = TypeError if case in ("float16", "mixed dtypes") else ValueError
+        if case == "negative window":
+            window = -1
+        if case == "int position":
+            pos = 4
+        if case == "int32 position":
+            pos = pos.int()
+        if case == "position of one element":
+            pos = pos.reshape(1)
+        if case == "position of two":
+            pos = torch.tensor([4, 5])
+        err = ValueError if case.startswith(("head", "16", "query", "strided",
+                                             "negative")) else TypeError
         with pytest.raises(err, match="decode_scores_cuda"):
-            D.decode_scores_cuda(qg, k, lo, hi, 0.25)
+            D.decode_scores_cuda(qg, k, pos, window, 0.25)
 
     @pytest.mark.parametrize("pairs,rows,dh,want", [
         (128 * 16, S, 128, 1),     # olmo-1b.decode: the card full already
@@ -246,8 +305,9 @@ def _against_plain(cuda, B, S, hkv, g, dh, pos, window=0,
     kernel's probabilities' zeros outside [lo, hi) and its PV output."""
     qg, k, v = _inputs(B, S, hkv, g, dh, dtype, cuda, seed=B + g + dh)
     lo, hi = _window(pos, window)
+    at = torch.tensor(pos, device=cuda)
     scale = dh ** -0.5
-    got = D.decode_scores_cuda(qg, k, lo, hi, scale)
+    got = D.decode_scores_cuda(qg, k, at, window, scale)
     want = D.decode_scores_plain(qg, k, lo, hi, scale)
     assert got.shape == want.shape and got.dtype == torch.float32
     # fp32 sums of exact products, in another order.
@@ -259,14 +319,14 @@ def _against_plain(cuda, B, S, hkv, g, dh, pos, window=0,
     # the PV kernel skips the slots outside [lo, hi): exact only if the
     # softmax gives 0 there
     assert (p[..., :lo] == 0).all() and (p[..., hi:] == 0).all()
-    out = D.decode_pv_cuda(p, v, lo, hi)
+    out = D.decode_pv_cuda(p, v, at, window)
     ref = D.decode_pv_plain(p, v, lo, hi)
     assert out.shape == ref.shape and out.dtype == dtype
     # one rounding to the dtype from fp32 sums in another order: 1 ulp
     tol = dict(rtol=1e-2, atol=1e-5) if dtype == torch.bfloat16 else \
         dict(rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(out, ref, **tol)
-    assert torch.equal(out, D.decode_pv_cuda(p, v, lo, hi))   # repeats
+    assert torch.equal(out, D.decode_pv_cuda(p, v, at, window))   # repeats
     return out
 
 
@@ -301,7 +361,27 @@ class TestCard:
     def test_the_launch_counters(self, cuda):
         qg, k, v = _inputs(2, 64, 2, 1, 128, device=cuda)
         s0, p0 = D.decode_scores_cuda.launches, D.decode_pv_cuda.launches
-        scores = ops.decode_scores(qg, k, 0, 40, 0.1)
-        ops.decode_pv(ops.softmax(scores).to(v.dtype), v, 0, 40)
+        at = torch.tensor(39, device=cuda)
+        scores = ops.decode_scores(qg, k, at, 0, 0.1)
+        ops.decode_pv(ops.softmax(scores).to(v.dtype), v, at, 0)
         assert D.decode_scores_cuda.launches == s0 + 1
         assert D.decode_pv_cuda.launches == p0 + 1
+
+    @pytest.mark.parametrize("B,S_,hkv,g,dh,pos,window", [
+        (128, S, 16, 1, 128, 1088, 0),     # olmo-1b.decode: one block a pair
+        (128, S, 16, 1, 128, 0, 0),
+        (4, 161, 16, 1, 128, 144, 0),      # batch 4: 4 blocks a pair
+        (4, 161, 16, 1, 128, 40, 0),       # ... of which the slots use 1
+        (4, 161, 16, 1, 128, 100, 0),      # ... and 2
+        (1, 8192, 8, 4, 128, 7170, 4096),  # Jamba's window, 8 blocks a pair
+        (2, 40, 2, 2, 16, 30, 0)],
+        ids=["cell", "cell-first", "b4", "b4-one", "b4-two", "jamba",
+             "smoke"])
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                             ids=["bf16", "f32"])
+    def test_a_position_on_the_card(self, cuda, B, S_, hkv, g, dh, pos,
+                                    window, dtype):
+        """At positions that use 1, 2 or all of the PV product's blocks a
+        pair (its grid sized from the cache, its blocks from the position),
+        the kernels give the plain versions' results and repeat."""
+        _against_plain(cuda, B, S_, hkv, g, dh, pos, window, dtype)
